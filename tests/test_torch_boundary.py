@@ -1,0 +1,61 @@
+"""The port's import boundary and device defaults.
+
+``handpose_tpu_torch`` imports neither JAX nor flax nor anything of
+``handpose_tpu``, and its entry points default to the card and raise when
+there is none.  Decided inside the tests, never at import.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import handpose_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "handpose_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_flax_or_reference_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    n, bad = res.stdout.strip().split(" ", 1)
+    assert int(n) >= 20          # every module was imported
+    assert bad == "[]"
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    from handpose_tpu_torch import Config, resolve_device
+    from handpose_tpu_torch.data.rhd import write_synthetic_rhd
+    from handpose_tpu_torch.infer import (Evaluator, load_serving_model,
+                                          serve)
+    write_synthetic_rhd(str(tmp_path), "evaluation", n=2)
+    cfg = Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
+                 dataset_root_dir=str(tmp_path), input_img_shape=(32, 32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Evaluator(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_serving_model(cfg)
+    model = load_serving_model(cfg, device="cpu")
+    from handpose_tpu_torch.data.rhd import RHDDataset
+    raw = RHDDataset(str(tmp_path), "evaluation").raw_batch([0, 1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve(model, raw, cfg)
+    xyz, uv = serve(model, raw, cfg, device="cpu")
+    assert xyz.shape == (2, 21, 3) and torch.isfinite(xyz).all()
