@@ -6,10 +6,12 @@ JAX or of ``handpose_tpu``.  Entry points take ``device=None``, meaning
 the card; pass ``device="cpu"`` to run the plain PyTorch versions of the
 kernels on the host.
 
-This slice covers the RHD serving path of ``Hand3DPosePriorNetwork``:
-device preprocessing with the scoremap render as a hand-written CUDA
-kernel, the two ResNet-18 trunks in eval mode, the eval metrics, the
-``Evaluator`` and ``serve``.
+It covers the RHD serving and training paths of
+``Hand3DPosePriorNetwork``: device preprocessing with the scoremap
+render as a hand-written CUDA kernel, the two ResNet-18 trunks with
+train-mode BatchNorm (its moments a CUDA kernel) and the stem max pool
+(its backward a CUDA kernel), Adam with the cosine LR, the fused train
+and eval steps, the ``Worker``, the ``Evaluator`` and ``serve``.
 """
 
 __version__ = "0.1.0"

@@ -164,6 +164,14 @@ class Config:
         return self.input_img_shape[0]
 
     @property
+    def bn_mode(self) -> str:
+        """Resolved BatchNorm variance mode ('stable'|'fast'|'shifted'):
+        the legacy bn_fast_variance=True flag upgrades 'stable'."""
+        if self.bn_variance == "stable" and self.bn_fast_variance:
+            return "fast"
+        return self.bn_variance
+
+    @property
     def loss_gates(self) -> dict:
         gates = dict(xyz=False, uv=False, diffusion=False, hand_mask=False,
                      regularization=False, contrastive=False, rot=False)

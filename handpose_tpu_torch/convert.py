@@ -7,9 +7,10 @@ flattened to ``/``-joined paths with numpy leaves, e.g.
     batch_stats/ViewPoint_net/backbone/trunk/bn_init/mean
 
 which :func:`flatten_variables` makes from the nested tree and
-``np.savez`` stores (the ``--weights`` file of the CLI).  The port's
-modules carry flax's names, so every path names a module; the leaf maps
-as follows:
+``np.savez`` stores (the ``--weights`` file of the CLIs).
+:func:`export_flax_variables` is the inverse: the port's model (or its
+gradients) as the same flat paths.  The port's modules carry flax's
+names, so every path names a module; the leaf maps as follows:
 
 * conv ``kernel`` (H, W, I, O) -> ``weight`` (O, I, H, W);
 * dense ``kernel`` (in, out) -> ``weight`` (out, in); ``bias`` -> ``bias``;
@@ -26,6 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .nn.norm import BatchNorm
+
 _LEAF = {
     ("params", "kernel"): "weight",
     ("params", "bias"): "bias",
@@ -33,6 +36,12 @@ _LEAF = {
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
+
+
+# torch name -> (collection, flax leaf); ``weight`` depends on the module
+_EXPORT = {"bias": ("params", "bias"),
+           "running_mean": ("batch_stats", "mean"),
+           "running_var": ("batch_stats", "var")}
 
 
 def flatten_variables(tree: Mapping, prefix: str = "") -> dict:
@@ -52,6 +61,14 @@ def _to_torch_layout(name: str, value: np.ndarray) -> np.ndarray:
         return value.transpose(3, 2, 0, 1)          # HWIO -> OIHW
     if name == "kernel" and value.ndim == 2:
         return value.T                              # (in, out) -> (out, in)
+    return value
+
+
+def _from_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
+    if leaf == "kernel" and value.ndim == 4:
+        return value.transpose(2, 3, 1, 0)          # OIHW -> HWIO
+    if leaf == "kernel" and value.ndim == 2:
+        return value.T                              # (out, in) -> (in, out)
     return value
 
 
@@ -87,3 +104,33 @@ def load_flax_variables(model: nn.Module,
         raise KeyError(f"{len(missing)} model tensors have no flax "
                        f"variable, e.g. {missing[:4]}")
     return model
+
+
+def export_flax_variables(model: nn.Module, grads: bool = False) -> dict:
+    """The model's parameters and BatchNorm statistics as flattened flax
+    variables (``params/...`` and ``batch_stats/...``, flax layouts,
+    float32 numpy), the inverse of :func:`load_flax_variables`.  With
+    ``grads=True``, the ``.grad`` of every parameter instead, under its
+    ``params/...`` path (no statistics); a parameter without a gradient
+    raises ``ValueError``."""
+    tensors = list(model.named_parameters())
+    if not grads:
+        tensors += list(model.named_buffers())
+    flat = {}
+    for name, tensor in tensors:
+        module_path, _, attr = name.rpartition(".")
+        if attr == "weight":
+            is_bn = isinstance(model.get_submodule(module_path), BatchNorm)
+            coll, leaf = "params", "scale" if is_bn else "kernel"
+        elif attr in _EXPORT:
+            coll, leaf = _EXPORT[attr]
+        else:
+            raise KeyError(f"{name}: not a tensor the flax model has")
+        if grads:
+            if tensor.grad is None:
+                raise ValueError(f"{name} has no gradient")
+            tensor = tensor.grad
+        value = tensor.detach().to("cpu", torch.float32).numpy()
+        path = "/".join([coll, *module_path.split("."), leaf])
+        flat[path] = np.ascontiguousarray(_from_torch_layout(leaf, value))
+    return flat

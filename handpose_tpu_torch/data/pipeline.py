@@ -58,9 +58,12 @@ def _host_tensors(raw: RawBatch, pin: bool) -> RawBatch:
 
 
 def raw_device_batches(dataset, batch_size: int, device: torch.device, *,
+                       shuffle: bool = False, seed: int = 0,
+                       drop_remainder: bool = False,
                        depth: int = 2) -> Iterator[RawBatch]:
-    """Raw batches as tensors on ``device``, in order, the trailing
-    partial batch included (the evaluation epoch).
+    """Raw batches as tensors on ``device``, in the order of
+    :func:`epoch_index_chunks` (by default the in-order evaluation epoch,
+    trailing partial batch included; training shuffles and drops it).
 
     ``dataset`` needs ``__len__`` and ``raw_batch(indices)``.  The worker
     thread collates (numpy, releases the interpreter lock in its copies)
@@ -68,8 +71,8 @@ def raw_device_batches(dataset, batch_size: int, device: torch.device, *,
     """
     device = torch.device(device)
     pin = device.type == "cuda"
-    chunks = epoch_index_chunks(len(dataset), batch_size,
-                                drop_remainder=False)
+    chunks = epoch_index_chunks(len(dataset), batch_size, shuffle, seed,
+                                drop_remainder)
 
     def collate(idx):
         return _host_tensors(dataset.raw_batch(idx), pin)

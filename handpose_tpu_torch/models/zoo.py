@@ -8,7 +8,10 @@ model is called as
           index_root_bone_length, keypoint_xyz_root, pose_x0=None)
       -> ModelOutput
 
-in eval mode.  Training waits for the training slice.
+``model.train()`` selects train-mode BatchNorm (batch statistics,
+running statistics updated), ``model.eval()`` the running statistics:
+the JAX models' ``train`` argument.  The stem pool's gradient is one
+function whatever ``cfg.pool_grad`` names (``ops/pooling.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from torch import nn
 
 from ..config import MODEL_NAMES, Config
 from ..nn.heads import PosePrior, ViewPoint
+from ..ops.pooling import POOL_GRADS
 from ..ops.projection import batch_project_xyz_to_uv, rel_normed_to_absolute
 from ..ops.rotations import axis_angle_rot_mat
 
@@ -52,17 +56,18 @@ class Hand3DPosePriorNetwork(nn.Module):
             raise NotImplementedError(
                 f"resnet_stem {cfg.resnet_stem!r} waits for a later slice "
                 "(ROADMAP.md, queue 1); this slice ports 'k3s2'")
+        if cfg.pool_grad not in POOL_GRADS:
+            raise ValueError(f"pool_grad {cfg.pool_grad!r} not in "
+                             f"{POOL_GRADS}")
         self.dtype = compute_dtype(cfg)
-        self.PosePrior_net = PosePrior(cfg.input_channels, self.dtype)
-        self.ViewPoint_net = ViewPoint(cfg.input_channels, self.dtype)
+        self.PosePrior_net = PosePrior(cfg.input_channels, self.dtype,
+                                       cfg.bn_mode)
+        self.ViewPoint_net = ViewPoint(cfg.input_channels, self.dtype,
+                                       cfg.bn_mode)
 
     def forward(self, img: torch.Tensor, camera_intrinsic_matrix=None,
                 index_root_bone_length=None, keypoint_xyz_root=None,
-                pose_x0=None, train: bool = False) -> ModelOutput:
-        if train or self.training:
-            raise NotImplementedError(
-                "training waits for the training slice (ROADMAP.md, "
-                "queue 1); call .eval()")
+                pose_x0=None) -> ModelOutput:
         B = img.shape[0]
         # NHWC -> NCHW view, cast once to the compute dtype in
         # channels_last memory (both trunks read the same input; flax casts

@@ -17,9 +17,11 @@ from .resnet import ExtendedResNet18
 class PosePrior(nn.Module):
     """Scoremap stack (B, C, H, W) -> (B, 63) canonical pose."""
 
-    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32,
+                 bn_variance: str = "fast"):
         super().__init__()
-        self.backbone = ExtendedResNet18(in_channels, dtype=dtype)
+        self.backbone = ExtendedResNet18(in_channels, dtype=dtype,
+                                         bn_variance=bn_variance)
         self.mlp = DecayMLP(1000, 63, divide=2, activation="LeakyReLU",
                             use_sigmoid=False)
 
@@ -30,9 +32,11 @@ class PosePrior(nn.Module):
 class ViewPoint(nn.Module):
     """Scoremap stack (B, C, H, W) -> (ux, uy, uz), each (B, 1)."""
 
-    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32,
+                 bn_variance: str = "fast"):
         super().__init__()
-        self.backbone = ExtendedResNet18(in_channels, dtype=dtype)
+        self.backbone = ExtendedResNet18(in_channels, dtype=dtype,
+                                         bn_variance=bn_variance)
         self.mlp = DecayMLP(1000, 3, divide=4, activation="LeakyReLU",
                             use_sigmoid=False)
 

@@ -105,3 +105,67 @@ def max_rel_err(ref, out) -> float:
     ref = np.asarray(ref, np.float64)
     out = np.asarray(out, np.float64)
     return float(np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-12))
+
+
+def train_cfgs(crop: int, **kw):
+    """(JAX Config, port Config) of the flagship for a train-step test:
+    21 scoremap channels, ``crop``, and ``kw`` (compute_dtype, grad_accum,
+    lr, max_epoch, ...) on both."""
+    from handpose_tpu.config import Config as JConfig
+    from handpose_tpu_torch.config import Config
+    args = dict(model_name=MODEL, input_channels=21,
+                input_img_shape=(crop, crop), **kw)
+    return JConfig(**args), Config(**args)
+
+
+def pp_kwargs(crop: int) -> dict:
+    return dict(crop_size=crop, sigma=25.0, switch_joint_order=True)
+
+
+def jax_train_state(flat: dict, jcfg, steps_per_epoch: int):
+    """(flax model, TrainState) with ``flat`` and the repo's Adam +
+    cosine schedule; a fresh copy of every array (the train step donates
+    its state)."""
+    from handpose_tpu.models import build_model
+    from handpose_tpu.train.state import TrainState, make_optimizer
+    model = build_model(jcfg)
+    var = unflatten(flat)
+    tx = make_optimizer(jcfg.lr, jcfg.lr_min, jcfg.max_epoch,
+                        steps_per_epoch)
+    return model, TrainState.create(apply_fn=model.apply,
+                                    params=var["params"], tx=tx,
+                                    batch_stats=var["batch_stats"])
+
+
+def torch_train_state(flat: dict, cfg, steps_per_epoch: int):
+    """(port model with ``flat``, its TrainState) on the host."""
+    from handpose_tpu_torch.convert import load_flax_variables
+    from handpose_tpu_torch.models import build_model
+    from handpose_tpu_torch.train.state import create_train_state
+    model = load_flax_variables(build_model(cfg), flat)
+    return model, create_train_state(model, cfg, steps_per_epoch)
+
+
+def jax_variables(state) -> dict:
+    """A JAX TrainState's params and batch_stats, flattened."""
+    from handpose_tpu_torch.convert import flatten_variables
+    return flatten_variables({"params": state.params,
+                              "batch_stats": state.batch_stats})
+
+
+def assert_trajectory_close(want: dict, got: dict):
+    """Variables after a few Adam steps in both packages: every leaf to
+    1e-2 of its range, and at least 99% of all elements to 1e-4 of their
+    leaf's range.  Adam divides each gradient element by its own
+    magnitude, so an element whose gradient sits at float32 noise level
+    steps by up to +-lr in either package whatever its sign; the
+    statistics of later layers follow those parameters."""
+    assert sorted(got) == sorted(want)
+    n_off = n_all = 0
+    for path, w in want.items():
+        diff = np.abs(got[path] - np.asarray(w, np.float32)) \
+            / max(float(np.abs(w).max()), 1e-12)
+        assert diff.max() <= 1e-2, (path, float(diff.max()))
+        n_off += int((diff > 1e-4).sum())
+        n_all += diff.size
+    assert n_off <= n_all // 100, (n_off, n_all)

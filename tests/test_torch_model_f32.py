@@ -120,14 +120,20 @@ def test_seeded_init_is_deterministic_and_he_scaled():
 
 
 def test_train_mode_and_other_models_wait_for_later_slices():
+    """Train mode runs now (batch statistics; the running statistics
+    move); the other models and stems still wait for later slices."""
     cfg = Config(model_name=MODEL, input_channels=CH,
                  input_img_shape=(32, 32))
     model = build_model(cfg)
-    x = torch.zeros(1, 32, 32, CH)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(x, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.train()(x)
+    bn = model.PosePrior_net.backbone.trunk.bn_init
+    before = bn.running_mean.clone()
+    x = torch.rand(2, 32, 32, CH)
+    with torch.no_grad():
+        out = model.train()(x)
+    assert torch.isfinite(out.can_xyz).all()
+    assert not torch.equal(bn.running_mean, before)
+    with pytest.raises(ValueError, match="pool_grad"):
+        build_model(cfg.replace(pool_grad="scatter"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(cfg.replace(model_name="OnlyThreeDimHandPose"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
