@@ -15,8 +15,10 @@
    - K2 BatchNorm moments at every BN shape of the b256 trunk, bf16,
      shift 0 and nonzero, each sum to 1e-5 of its scale, bit-identical
      over two runs;
-   - K3 stem max-pool backward at the b256 stem shape, odd shapes and a
-     tie-heavy input: equal support, within one bf16 ulp;
+   - K3 stem max-pool backward at the b256 stem shape, the float32 stem
+     at b16, odd and tile-edge shapes, C = 5 and 3 and a tie-heavy input:
+     equal support, within one ulp; timed, with its registers and
+     resident blocks per SM;
 4. serving phase: a 520-sample synthetic RHD tree in the decoded-cache
    form; the Evaluator at batch 256 (two full batches and one of 8) and
    ``serve`` on one batch, full width (crop 256, 21 input channels, two
@@ -406,10 +408,12 @@ def _ulp(t):
 
 
 def pool_bwd_phase(dev):
-    """K3 against its plain version at the b256 stem shape, odd shapes
-    and a tie-heavy input (equal support, max |diff| <= one ulp of the
-    plain result), then timed."""
-    from handpose_tpu_torch.ops import pool_bwd_cuda, pooling
+    """K3 against its plain version at the b256 stem shape, odd shapes,
+    tile-edge shapes (H, W one past and one short of a 16-pixel tile),
+    C = 5 and 3, the float32 stem at b16 and a tie-heavy input (equal
+    support, max |diff| <= one ulp of the plain result), then timed at
+    the stem shape; registers and resident blocks per SM from the card."""
+    from handpose_tpu_torch.ops import cuda_build, pool_bwd_cuda, pooling
     kernel = pool_bwd_cuda.max_pool_3x3s2p1_bwd_cuda
     plain = pooling.max_pool_3x3s2p1_bwd
     g = torch.Generator(device=dev).manual_seed(3)
@@ -425,11 +429,16 @@ def pool_bwd_phase(dev):
                 dy.to(dtype).contiguous(memory_format=cl))
 
     max_err = 0.0
+    bf16, f32 = torch.bfloat16, torch.float32
     for name, shape, dtype, ties in (
-            ("stem b256", STEM, torch.bfloat16, False),
-            ("odd", (8, 64, 33, 17), torch.bfloat16, False),
-            ("odd f32 C=5", (4, 5, 9, 7), torch.float32, False),
-            ("ties", (16, 64, 32, 32), torch.bfloat16, True)):
+            ("stem b256", STEM, bf16, False),
+            ("stem b16 f32", (16,) + STEM[1:], f32, False),
+            ("odd", (8, 64, 33, 17), bf16, False),
+            ("odd f32 C=5", (4, 5, 9, 7), f32, False),
+            ("odd C=3", (4, 3, 9, 7), bf16, True),
+            ("tile edge -1/+1", (8, 64, 31, 17), bf16, True),
+            ("tile edge +1/-1", (8, 64, 33, 15), f32, False),
+            ("ties", (16, 64, 32, 32), bf16, True)):
         x, dy = inputs(shape, dtype, ties)
         out = kernel(x, dy)
         torch.cuda.synchronize()
@@ -444,9 +453,13 @@ def pool_bwd_phase(dev):
               f"|diff| {err:.3g}")
         del out, ref, diff
     x, dy = inputs(STEM, torch.bfloat16)
+    plan = pool_bwd_cuda.KERNEL.plan(x, cuda_build.vector_width(x, dy))
+    blocks_per_sm, registers = pool_bwd_cuda.KERNEL.occupancy(plan, x.dtype)
+    check(plan.variant == "tiled", f"the stem shape takes the tiled variant "
+          f"({plan.th}x{plan.tw} windows a tile, {plan.smem} B of shared "
+          f"memory, {registers} registers, {blocks_per_sm} blocks per SM)")
     y, idx = torch.ops.aten.max_pool2d_with_indices(x, [3, 3], [2, 2],
                                                     [1, 1])
-    dy = dy.contiguous(memory_format=cl)
     ms = cuda_ms(lambda: kernel(x, dy), 20, hide_host=True)
     plain_ms = cuda_ms(lambda: plain(x, dy), 5, hide_host=True)
     library_ms = cuda_ms(
@@ -472,7 +485,12 @@ def pool_bwd_phase(dev):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
             "library": "aten.max_pool2d_with_indices_backward",
-            "library_forward_with_indices_ms": fwd_idx_ms}
+            "library_forward_with_indices_ms": fwd_idx_ms,
+            "variant": plan.variant,
+            "tile": [plan.th, plan.tw],
+            "block": list(plan.block), "grid": plan.grid,
+            "smem_bytes": plan.smem, "registers": registers,
+            "blocks_per_sm": blocks_per_sm}
 
 
 # ---------------------------------------------------------------------------
@@ -599,6 +617,7 @@ def training_phase(dev, root, raw_host):
         k.launches = 0
     _counts()[1].by_shape.clear()
     _counts()[2].dy_copies = 0
+    _counts()[2].by_variant.clear()
     t0 = time.perf_counter()
     best = worker.run()
     torch.cuda.synchronize()
@@ -606,6 +625,7 @@ def training_phase(dev, root, raw_host):
     launches = [k.launches for k in _counts()]
     k2_shapes = dict(_counts()[1].by_shape)
     dy_copies = _counts()[2].dy_copies
+    k3_variants = dict(_counts()[2].by_variant)
     peak = torch.cuda.max_memory_allocated()
     steps = worker.state.step
     n_val = 2 * -(-N_SAMPLES // BATCH)
@@ -616,6 +636,9 @@ def training_phase(dev, root, raw_host):
           f"{n_val} validation batches), K2 {launches[1]} (= 40 x "
           f"{steps}), K3 {launches[2]} (= 2 x {steps}) times; K3's dy "
           f"was copied into channels_last {dy_copies} times")
+    check(k3_variants == {"tiled": 2 * steps} and dy_copies == 0,
+          f"Worker run launched K3 only through the tiled variant "
+          f"({k3_variants}), dy never copied into channels_last")
     check(k2_shapes == {(N, C): 2 * per_trunk * steps
                         for _, N, C, per_trunk in BN_SHAPES},
           f"Worker run launched K2 at the BN shapes the K2 phase held and "
@@ -656,6 +679,7 @@ def training_phase(dev, root, raw_host):
         "launches": dict(zip(("scoremap", "moments", "pool_bwd"), launches)),
         "step_check": step_check,
         "pool_bwd_dy_layout_copies": dy_copies,
+        "pool_bwd_launches_by_variant": k3_variants,
     }
     print(f"training b{BATCH}: {BATCH / med:.1f} img/s (median step "
           f"{med * 1e3:.1f} ms after the first), step {step_ms:.3f} ms = "
@@ -711,6 +735,7 @@ def main():
     k1["launches_by_path"] = {"serving": k1_serving, "training": k1_train}
     k2["launches"] = k2_train
     k3["launches"] = k3_train
+    k3["launches_by_variant"] = training["pool_bwd_launches_by_variant"]
     serving["card"] = card
     training["card"] = card
     print(json.dumps({"serving": serving}), flush=True)

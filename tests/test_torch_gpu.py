@@ -151,15 +151,23 @@ def _pool_inputs(shape, dtype, dev, seed, ties=False):
                                         ((4, 64, 32, 32), True),
                                         ((2, 64, 33, 17), False),
                                         ((3, 5, 9, 7), True),
-                                        ((1, 8, 1, 1), False)])
+                                        ((1, 8, 1, 1), False),
+                                        ((2, 16, 31, 17), True),
+                                        ((2, 16, 33, 15), False),
+                                        ((2, 3, 9, 7), True),
+                                        ((2, 520, 9, 7), False)])
 def test_pool_bwd_kernel_equals_plain(cuda, shape, ties, dtype):
     """Both sum a pixel's terms in float32 in one order and round once:
-    equal exactly."""
+    equal exactly.  One launch, counted under its variant."""
     x, dy = _pool_inputs(shape, dtype, cuda, seed=shape[2], ties=ties)
-    before = pool_bwd_cuda.KERNEL.launches
+    kernel = pool_bwd_cuda.KERNEL
+    before, by_variant = kernel.launches, dict(kernel.by_variant)
     dx = pool_bwd_cuda.max_pool_3x3s2p1_bwd_cuda(x, dy)
     torch.cuda.synchronize()
-    assert pool_bwd_cuda.KERNEL.launches == before + 1
+    assert kernel.launches == before + 1
+    variant = "tiled_sync" if dtype == torch.bfloat16 and shape[1] % 2 \
+        else "tiled"
+    assert kernel.by_variant[variant] == by_variant.get(variant, 0) + 1
     assert dx.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(dx, pooling.max_pool_3x3s2p1_bwd(x, dy))
 
