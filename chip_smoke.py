@@ -11,7 +11,9 @@
    with CUDA events beside the least time the card could take (its
    bound) and, where one exists, one PyTorch call computing the same
    function:
-   - K1 scoremap (serving and training preprocessing);
+   - K1 scoremap (serving and training preprocessing), also on the
+     coordinates uv and crop noise give it (fractional, below -1, in
+     (-1, 0), past H - 1);
    - K2 BatchNorm moments at every BN shape of the b256 trunk, bf16,
      shift 0 and nonzero, each sum to 1e-5 of its scale, bit-identical
      over two runs;
@@ -37,7 +39,19 @@
    ``Worker`` for two epochs (4 train steps, whole-split validation after
    each), with every launch count read around it; then the step's layer
    times and peak memory;
-6. prints the ``kernels`` line, the card line and, last, the result line.
+6. augmented training phase: the same Worker with all six train-time
+   augmentations on (uv, crop centre, scale and offset noise, hue,
+   scoremap dropout, drawn on the card): launch counts as in 5, finite
+   losses, the draws' statistics over the run (dropout keep share 0.2 +-
+   0.001, uv noise std 2.5 +- 0.05 px); its checkpoint/ and model_best/
+   (write time, bytes); a second Worker resumed from checkpoint/, whose
+   params, statistics and Adam state must be bit-equal; the Evaluator on
+   model_best/, whose MPJPE must equal the run's best exactly; then the
+   step's layer times beside the plain step's;
+7. preemption phase: a request inside step 3 pins the checkpoint to
+   epoch 1, and a Worker resumed from it restarts epoch 1 from the
+   preempted state (bit-equal) and runs it to the end;
+8. prints the ``kernels`` line, the card line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero; without a card, or
 without the package beside it, it exits non-zero before printing results.
@@ -145,8 +159,33 @@ def scoremap_phase(dev, raw_host):
                                      -1).contiguous()
         serving_vis = s["keypoint_vis21"].contiguous()
         del s
+        # the training path's coordinates under uv and crop noise, drawn
+        # on the card as the augmented Worker draws them, with a few set
+        # where the noise can put them: in (-1, 0), below -1, past H - 1
+        g = torch.Generator(device=dev).manual_seed(11)
+        s = preprocess_batch(raw_host.to(dev), crop_size=crop, sigma=sigma,
+                             switch_joint_order=False, coord_uv_noise=True,
+                             crop_center_noise=True, crop_scale_noise=True,
+                             crop_offset_noise=True, generator=g)
+        aug_coords = torch.stack([s["keypoint_uv21"][..., 1],
+                                  s["keypoint_uv21"][..., 0]], -1)
+        aug_vis = s["keypoint_vis21"].contiguous()
+        del s
+        aug_coords[0, :6] = torch.tensor(
+            [[-0.4, 7.3], [-0.999, crop - 0.5], [-3.2, 40.6],
+             [crop - 0.5, 12.25], [crop - 1 + 1e-3, -0.25],
+             [crop + 5.5, crop - 1.5]], device=dev)
+        aug_vis[0, :6] = True
+        aug_coords = aug_coords.contiguous()
+    frac = aug_coords - aug_coords.floor()
+    check(bool((frac > 0).any() and (aug_coords < -1).any()
+               and ((aug_coords > -1) & (aug_coords < 0)).any()
+               and (aug_coords > crop - 1).any()),
+          "augmented coordinates hold fractional values, values below -1, "
+          "in (-1, 0) and past H - 1")
     plain = heatmap.render_gaussian_maps
-    cases = [("serving", serving_coords, serving_vis, (crop, crop))]
+    cases = [("serving", serving_coords, serving_vis, (crop, crop)),
+             ("augmented training", aug_coords, aug_vis, (crop, crop))]
     for B, K, H, W in ((BATCH, 21, 256, 256), (2, 21, 320, 320),
                        (2, 21, 320, 240), (2, 5, 37, 53), (1, 3, 1, 1)):
         c, v = scoremap_inputs(B, K, H, W, seed=H * W, dev=dev)
@@ -503,24 +542,98 @@ def _counts():
     return (scoremap_cuda.KERNEL, moments_cuda.KERNEL, pool_bwd_cuda.KERNEL)
 
 
+def step_split(worker, raw):
+    """Layer times of one b256 step on the Worker's path (its
+    augmentations drawn from its generator), device resident:
+    preprocessing, forward and loss, backward and Adam."""
+    from handpose_tpu_torch.data.preprocess import preprocess_batch
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch.train import compute_losses
+    from handpose_tpu_torch.train.steps import _forward
+    model, state, cfg, g = (worker.model, worker.state, worker.cfg,
+                            worker.generator)
+    flags = {k: True for k, on in worker.aug_flags.items() if on}
+    pp = serving_kwargs(cfg)
+
+    def prep():
+        if flags:
+            return preprocess_batch(raw, **pp, **flags, generator=g)
+        return preprocess_batch(raw, **pp)
+
+    def fwd_loss():
+        with torch.no_grad():
+            batch = prep()
+        out = _forward(model, batch, cfg, True)
+        return compute_losses(out, batch, cfg)["loss"]
+
+    with torch.no_grad():
+        preprocess_ms = cuda_ms(prep, 5)
+    fwd_ms = cuda_ms(fwd_loss, 3)
+    step_ms = cuda_ms(lambda: worker.train_step(state, raw, generator=g), 3)
+    return {"step_ms": step_ms, "preprocess_ms": preprocess_ms,
+            "forward_ms": fwd_ms - preprocess_ms,
+            "backward_and_update_ms": step_ms - fwd_ms}
+
+
+def train_config(root, logs, **kw):
+    """The flagship at full width on the tree, b256, two epochs of two
+    steps (the tree's one split trains and validates)."""
+    from handpose_tpu_torch import Config
+    return Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
+                  dataset_name="RHD", dataset_root_dir=root,
+                  batch_size=BATCH, infer_batch_size=BATCH, max_epoch=2,
+                  use_val_dataset_to_debug=True, save_log_dir=logs, **kw)
+
+
+def reset_counts():
+    k1, k2, k3 = _counts()
+    for k in (k1, k2, k3):
+        k.launches = 0
+    k2.by_shape.clear()
+    k3.dy_copies = 0
+    k3.by_variant.clear()
+
+
+def check_worker_launches(worker, what):
+    """The launch counts of a Worker's run from reset_counts(): K1 once a
+    step or validation batch, K2 40 times a step at the held BN shapes,
+    K3 twice a step, all tiled, dy never copied."""
+    k1, k2, k3 = _counts()
+    steps = worker.state.step
+    n_val = 2 * -(-N_SAMPLES // BATCH)
+    launches = [k1.launches, k2.launches, k3.launches]
+    check(launches == [steps + n_val, 40 * steps, 2 * steps],
+          f"{what}: launched K1 {launches[0]} (= {steps} steps + {n_val} "
+          f"validation batches), K2 {launches[1]} (= 40 x {steps}), K3 "
+          f"{launches[2]} (= 2 x {steps}) times")
+    check(dict(k3.by_variant) == {"tiled": 2 * steps} and k3.dy_copies == 0,
+          f"{what}: K3 only through the tiled variant ({dict(k3.by_variant)})"
+          f", dy never copied into channels_last ({k3.dy_copies})")
+    check(dict(k2.by_shape) == {(N, C): 2 * per_trunk * steps
+                                for _, N, C, per_trunk in BN_SHAPES},
+          f"{what}: K2 at the BN shapes the K2 phase held and timed, as "
+          f"often as the two trunks hold them: {dict(k2.by_shape)}")
+    return launches
+
+
+def epoch_losses(worker):
+    lines = [t for t in open(worker.log_path).read().splitlines()
+             if t.startswith("Training Epoch")]
+    return [float(t.rsplit("loss: ", 1)[1].split(",")[0]) for t in lines]
+
+
 def training_phase(dev, root, raw_host):
     import copy
-    from handpose_tpu_torch import Config
     from handpose_tpu_torch.data import preprocess as pp_mod
     from handpose_tpu_torch.data.preprocess import preprocess_batch
     from handpose_tpu_torch.infer.evaluator import serving_kwargs
     from handpose_tpu_torch.models import build_model
     from handpose_tpu_torch.ops import heatmap, moments, pooling
-    from handpose_tpu_torch.train import (Worker, compute_losses,
-                                          create_train_state,
+    from handpose_tpu_torch.train import (Worker, create_train_state,
                                           make_fused_train_step)
-    from handpose_tpu_torch.train.steps import _forward
 
     logs = tempfile.mkdtemp(dir=root)
-    cfg = Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
-                 dataset_name="RHD", dataset_root_dir=root,
-                 batch_size=BATCH, infer_batch_size=BATCH, max_epoch=2,
-                 use_val_dataset_to_debug=True, save_log_dir=logs)
+    cfg = train_config(root, logs)
     check(cfg.crop_size == 256 and cfg.compute_dtype == "bfloat16"
           and cfg.bn_mode == "fast",
           "training at full width: crop 256, bf16, bn_variance 'fast'")
@@ -613,68 +726,34 @@ def training_phase(dev, root, raw_host):
     worker = Worker(cfg, run_dir=logs, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in _counts():
-        k.launches = 0
-    _counts()[1].by_shape.clear()
-    _counts()[2].dy_copies = 0
-    _counts()[2].by_variant.clear()
+    reset_counts()
     t0 = time.perf_counter()
     best = worker.run()
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
-    launches = [k.launches for k in _counts()]
     k2_shapes = dict(_counts()[1].by_shape)
-    dy_copies = _counts()[2].dy_copies
     k3_variants = dict(_counts()[2].by_variant)
+    dy_copies = _counts()[2].dy_copies
     peak = torch.cuda.max_memory_allocated()
     steps = worker.state.step
-    n_val = 2 * -(-N_SAMPLES // BATCH)
     check(steps == 4 and len(worker.step_seconds) == 4,
           f"Worker took {steps} train steps over 2 epochs")
-    check(launches == [steps + n_val, 40 * steps, 2 * steps],
-          f"Worker run launched K1 {launches[0]} (= {steps} steps + "
-          f"{n_val} validation batches), K2 {launches[1]} (= 40 x "
-          f"{steps}), K3 {launches[2]} (= 2 x {steps}) times; K3's dy "
-          f"was copied into channels_last {dy_copies} times")
-    check(k3_variants == {"tiled": 2 * steps} and dy_copies == 0,
-          f"Worker run launched K3 only through the tiled variant "
-          f"({k3_variants}), dy never copied into channels_last")
-    check(k2_shapes == {(N, C): 2 * per_trunk * steps
-                        for _, N, C, per_trunk in BN_SHAPES},
-          f"Worker run launched K2 at the BN shapes the K2 phase held and "
-          f"timed, as often as the two trunks hold them: {k2_shapes}")
-    log = open(worker.log_path).read()
-    train_lines = [t for t in log.splitlines()
-                   if t.startswith("Training Epoch")]
-    losses = [float(t.rsplit("loss: ", 1)[1].split(",")[0])
-              for t in train_lines]
+    launches = check_worker_launches(worker, "Worker run")
+    losses = epoch_losses(worker)
     check(len(losses) == 2 and all(np.isfinite(losses)),
           f"finite epoch training losses {losses}")
     check(np.isfinite(best) and best > 0,
           f"validation MPJPE finite: {best:.4f} mm")
 
     # ---- layer times of one b256 step, device resident ----
-    model, state = worker.model, worker.state
-    step = worker.train_step
-
-    def fwd_loss():
-        with torch.no_grad():
-            batch = preprocess_batch(raw, **pp)
-        out = _forward(model, batch, cfg, True)
-        return compute_losses(out, batch, cfg)["loss"]
-
-    with torch.no_grad():
-        preprocess_ms = cuda_ms(lambda: preprocess_batch(raw, **pp), 5)
-    fwd_ms = cuda_ms(fwd_loss, 3)
-    step_ms = cuda_ms(lambda: step(state, raw), 3)
+    split = step_split(worker, raw)
     med = float(np.median(worker.step_seconds[1:]))
     training = {
         "steps": steps, "epoch_losses": losses, "val_mpjpe_mm": best,
         "run_s": t_run, "step_s": worker.step_seconds,
+        "median_step_ms_after_first": med * 1e3,
         "train_img_per_s_median_after_first": BATCH / med,
-        "step_ms": step_ms, "preprocess_ms": preprocess_ms,
-        "forward_ms": fwd_ms - preprocess_ms,
-        "backward_and_update_ms": step_ms - fwd_ms,
+        **split,
         "max_memory_allocated_bytes": peak,
         "launches": dict(zip(("scoremap", "moments", "pool_bwd"), launches)),
         "step_check": step_check,
@@ -682,14 +761,192 @@ def training_phase(dev, root, raw_host):
         "pool_bwd_launches_by_variant": k3_variants,
     }
     print(f"training b{BATCH}: {BATCH / med:.1f} img/s (median step "
-          f"{med * 1e3:.1f} ms after the first), step {step_ms:.3f} ms = "
-          f"preprocess {preprocess_ms:.3f} + forward "
-          f"{fwd_ms - preprocess_ms:.3f} + backward and Adam "
-          f"{step_ms - fwd_ms:.3f}; validation MPJPE {best:.4f} mm; peak "
-          f"{peak} B", flush=True)
-    del worker, model, state, step
+          f"{med * 1e3:.1f} ms after the first), step {split['step_ms']:.3f}"
+          f" ms = preprocess {split['preprocess_ms']:.3f} + forward "
+          f"{split['forward_ms']:.3f} + backward and Adam "
+          f"{split['backward_and_update_ms']:.3f}; validation MPJPE "
+          f"{best:.4f} mm; peak {peak} B", flush=True)
+    del worker
     torch.cuda.empty_cache()
     return training, launches, k2_shapes
+
+
+def same_state(a, b):
+    """(variables equal, Adam's moments and steps equal), bit for bit."""
+    from handpose_tpu_torch.convert import export_flax_variables
+    va, vb = export_flax_variables(a.model), export_flax_variables(b.model)
+    same_vars = sorted(va) == sorted(vb) and all(
+        np.array_equal(va[k], vb[k]) for k in va)
+    sa, sb = a.state.optimizer.state, b.state.optimizer.state
+    same_adam = all(
+        torch.equal(sa[p][k], sb[q][k])
+        for p, q in zip(a.model.parameters(), b.model.parameters())
+        for k in ("exp_avg", "exp_avg_sq", "step"))
+    return same_vars, same_adam
+
+
+def augmented_training_phase(dev, root, raw_host, plain):
+    """The main path with all six augmentations: the Worker for two
+    epochs, its launches and the draws' statistics; then its checkpoint
+    (write time, size), a second Worker resumed from it (bit-equal
+    state), the Evaluator on model_best (equal to the best validation
+    MPJPE); then the step's layer times beside the plain step's."""
+    import os
+    from handpose_tpu_torch.data import preprocess as pp_mod
+    from handpose_tpu_torch.infer import Evaluator
+    from handpose_tpu_torch.train import Worker, trainer
+
+    logs = tempfile.mkdtemp(dir=root)
+    cfg = train_config(root, logs, **{f: True for f in trainer.AUG_FLAGS})
+    raw = raw_host.to(dev)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    stats = {"keep": zero.clone(), "elements": zero.clone(),
+             "uv_sq": zero.clone(), "uv_n": zero.clone()}
+    draw = pp_mod.draw_augmentations
+
+    def counting_draw(flags, shapes, generator):
+        d = draw(flags, shapes, generator)
+        stats["keep"] += d.dropout_keep.sum()
+        stats["elements"] += d.dropout_keep.numel()
+        stats["uv_sq"] += d.uv_noise.double().square().sum()
+        stats["uv_n"] += d.uv_noise.numel()
+        return d
+
+    write_s = []
+    save = trainer.save_checkpoint
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        save(*args, **kw)
+        write_s.append(time.perf_counter() - t0)
+
+    # ---- the main path: the augmented Worker, two epochs ----
+    worker = Worker(cfg, run_dir=logs, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(pp_mod, "draw_augmentations", counting_draw), \
+            mock.patch.object(trainer, "save_checkpoint", timed_save):
+        best = worker.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = worker.state.step
+    check(steps == 4, f"augmented Worker took {steps} train steps over 2 "
+          "epochs")
+    launches = check_worker_launches(worker, "augmented Worker run")
+    losses = epoch_losses(worker)
+    check(len(losses) == 2 and all(np.isfinite(losses)),
+          f"augmented Worker: finite epoch training losses {losses}")
+    check(np.isfinite(best) and best > 0,
+          f"augmented Worker: validation MPJPE finite: {best:.4f} mm")
+    keep = float(stats["keep"] / stats["elements"])
+    uv_std = float((stats["uv_sq"] / stats["uv_n"]).sqrt())
+    check(abs(keep - 0.2) <= 1e-3, f"dropout keep share over the run "
+          f"{keep:.6f} = 0.2 +- 0.001 ({int(stats['elements'])} elements)")
+    check(abs(uv_std - 2.5) <= 0.05, f"uv noise std over the run "
+          f"{uv_std:.4f} = 2.5 +- 0.05 px ({int(stats['uv_n'])} draws)")
+
+    # ---- checkpoint, resume, Evaluator on model_best ----
+    ckpt = os.path.join(logs, "checkpoint")
+    sizes = {d: sum(os.path.getsize(os.path.join(logs, d, f))
+                    for f in os.listdir(os.path.join(logs, d)))
+             for d in ("checkpoint", "model_best")}
+    check(len(write_s) == 2 and all(sizes.values()),
+          f"checkpoint/ and model_best/ written at each epoch's end: "
+          f"{[round(t, 3) for t in write_s]} s, {sizes} B")
+    t0 = time.perf_counter()
+    resumed = Worker(cfg.replace(resume_weight_path=ckpt),
+                     run_dir=tempfile.mkdtemp(dir=root), device=dev)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    same_vars, same_adam = same_state(worker, resumed)
+    check(same_vars and same_adam,
+          "resumed Worker: params, batch_stats and Adam's moments and steps "
+          "bit-equal to the run's")
+    check(resumed.start_epoch == 2 and resumed.state.step == 4,
+          f"resumed Worker: start_epoch {resumed.start_epoch} == 2, schedule "
+          f"count {resumed.state.step} == 2 x 2")
+    del resumed
+    ev_mpjpe = Evaluator(cfg, weights=os.path.join(logs, "model_best"),
+                         device=dev).evaluate()
+    check(ev_mpjpe == best, f"Evaluator on model_best: {ev_mpjpe!r} mm == "
+          f"the Worker's best validation MPJPE {best!r}")
+
+    # ---- layer times, beside the plain step's ----
+    split = step_split(worker, raw)
+    med = float(np.median(worker.step_seconds[1:]))
+    augmented = {
+        "steps": steps, "epoch_losses": losses, "val_mpjpe_mm": best,
+        "evaluator_model_best_mpjpe_mm": ev_mpjpe, "run_s": t_run,
+        "step_s": worker.step_seconds,
+        "median_step_ms_after_first": med * 1e3,
+        "train_img_per_s_median_after_first": BATCH / med,
+        **split,
+        "augmented_minus_plain_step_ms": split["step_ms"] - plain["step_ms"],
+        "max_memory_allocated_bytes": peak,
+        "launches": dict(zip(("scoremap", "moments", "pool_bwd"), launches)),
+        "dropout_keep_share": keep, "uv_noise_std_px": uv_std,
+        "checkpoint_write_s": write_s, "checkpoint_bytes": sizes,
+        "resume_s": resume_s,
+    }
+    print(f"augmented training b{BATCH}: median step {med * 1e3:.1f} ms "
+          f"after the first (plain {plain['median_step_ms_after_first']:.1f})"
+          f", step {split['step_ms']:.3f} ms (plain {plain['step_ms']:.3f}) "
+          f"= preprocess {split['preprocess_ms']:.3f} (plain "
+          f"{plain['preprocess_ms']:.3f}) + forward {split['forward_ms']:.3f}"
+          f" + backward and Adam {split['backward_and_update_ms']:.3f}; "
+          f"checkpoint write {write_s} s, {sizes} B, resume {resume_s:.3f} "
+          f"s; peak {peak} B", flush=True)
+    del worker
+    torch.cuda.empty_cache()
+    return augmented, launches
+
+
+def preemption_phase(dev, root):
+    """A request inside step 3 (epoch 1, iter 0): the checkpoint is
+    pinned to epoch 1, and a Worker resumed from it restarts epoch 1 and
+    runs it to the end."""
+    import os
+    from handpose_tpu_torch.train import PreemptionGuard, Worker, trainer
+
+    logs = tempfile.mkdtemp(dir=root)
+    cfg = train_config(root, logs, **{f: True for f in trainer.AUG_FLAGS})
+    worker = Worker(cfg, run_dir=logs, device=dev)
+    guard = worker.enable_preemption_save(PreemptionGuard(signals=()))
+    calls = [0]
+    step = worker.train_step
+
+    def requesting_step(state, raw, **kw):
+        calls[0] += 1
+        if calls[0] == 3:
+            guard.request()
+        return step(state, raw, **kw)
+
+    worker.train_step = requesting_step
+    worker.run()
+    saved = torch.load(os.path.join(logs, "checkpoint", "train_state.pt"),
+                       weights_only=True)
+    check(calls[0] == 3 and saved["epoch"] == 1 and saved["step"] == 3,
+          f"preemption inside step 3: the loop stopped after {calls[0]} "
+          f"steps, the checkpoint resumes at epoch {saved['epoch']} (step "
+          f"count {saved['step']})")
+    resumed = Worker(cfg.replace(resume_weight_path=os.path.join(
+        logs, "checkpoint")), run_dir=tempfile.mkdtemp(dir=root), device=dev)
+    same_vars, same_adam = same_state(worker, resumed)
+    check(resumed.start_epoch == 1 and same_vars and same_adam,
+          f"the resumed Worker restarts epoch {resumed.start_epoch} from the "
+          "preempted state, bit-equal")
+    del worker
+    best = resumed.run()
+    check(resumed.state.step == 4 and np.isfinite(best),
+          f"the resumed Worker ran epoch 1 to its end: schedule count "
+          f"{resumed.state.step}, validation MPJPE {best:.4f} mm")
+    del resumed
+    torch.cuda.empty_cache()
+    return {"stopped_after_steps": calls[0], "checkpoint_epoch":
+            saved["epoch"], "resumed_val_mpjpe_mm": best}
 
 
 def main():
@@ -730,16 +987,27 @@ def main():
         torch.cuda.empty_cache()
         training, (k1_train, k2_train, k3_train), k2_shapes = \
             training_phase(dev, root, raw_host)
+        torch.cuda.empty_cache()
+        augmented, (k1_aug, k2_aug, k3_aug) = augmented_training_phase(
+            dev, root, raw_host, training)
+        preemption = preemption_phase(dev, root)
     moments_per_step(k2, k2_shapes, training["steps"])
-    k1["launches"] = k1_serving + k1_train
-    k1["launches_by_path"] = {"serving": k1_serving, "training": k1_train}
-    k2["launches"] = k2_train
-    k3["launches"] = k3_train
+    k1["launches"] = k1_serving + k1_train + k1_aug
+    k1["launches_by_path"] = {"serving": k1_serving, "training": k1_train,
+                              "augmented_training": k1_aug}
+    k2["launches"] = k2_train + k2_aug
+    k2["launches_by_path"] = {"training": k2_train,
+                              "augmented_training": k2_aug}
+    k3["launches"] = k3_train + k3_aug
+    k3["launches_by_path"] = {"training": k3_train,
+                              "augmented_training": k3_aug}
     k3["launches_by_variant"] = training["pool_bwd_launches_by_variant"]
-    serving["card"] = card
-    training["card"] = card
+    for record in (serving, training, augmented, preemption):
+        record["card"] = card
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"augmented_training": augmented}), flush=True)
+    print(json.dumps({"preemption": preemption}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ It covers the RHD serving and training paths of
 render as a hand-written CUDA kernel, the two ResNet-18 trunks with
 train-mode BatchNorm (its moments a CUDA kernel) and the stem max pool
 (its backward a CUDA kernel), Adam with the cosine LR, the fused train
-and eval steps, the ``Worker``, the ``Evaluator`` and ``serve``.
+and eval steps with the train-time augmentations, the ``Worker`` with
+checkpoints, resume, preemption, run logging and fake data, the
+``Evaluator`` and ``serve``.
 """
 
 __version__ = "0.1.0"

@@ -10,6 +10,7 @@ parity; the port ignores them.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Any, Tuple
 
@@ -177,6 +178,19 @@ class Config:
                      regularization=False, contrastive=False, rot=False)
         gates.update(LOSS_GATES[self.model_name])
         return gates
+
+    def to_json(self) -> str:
+        """The run directory's ``config.json`` snapshot."""
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        """A Config from :meth:`to_json` output (``--from_run``).  Unknown
+        keys are ignored, so snapshots of other versions load; JSON lists
+        become the tuples the fields declare."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in json.loads(s).items() if k in names})
 
 
 def apply_overrides(cfg: Config, pairs) -> Config:

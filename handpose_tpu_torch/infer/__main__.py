@@ -1,10 +1,11 @@
 """Evaluate visible-joint MPJPE over the RHD evaluation split.
 
     python -m handpose_tpu_torch.infer --data_root /data/RHD \\
-        --weights flax_variables.npz --device cuda
+        --ckpt logs/<model>/RHD/run_<ts>/model_best --device cuda
 
 The split must hold the decoded uint8 cache (see ``data/rhd.py``).
-``--weights`` is an ``.npz`` of the JAX model's variables flattened to
+``--weights`` (alias ``--ckpt``) is a checkpoint directory the train CLI
+wrote, or an ``.npz`` of the JAX model's variables flattened to
 ``/``-joined paths (``convert.flatten_variables``); without it the model
 keeps its seeded init.  Counterpart of the repository's ``inference.py``.
 """
@@ -24,7 +25,8 @@ def main(argv=None) -> float:
     p.add_argument("--data_root", default="/data/RHD")
     p.add_argument("--batch_size", type=int, default=100)
     p.add_argument("--max_batches", type=int, default=None)
-    p.add_argument("--weights", default=None, metavar="NPZ")
+    p.add_argument("--weights", "--ckpt", dest="weights", default=None,
+                   metavar="NPZ_OR_DIR")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--set", action="append", metavar="KEY=VALUE",

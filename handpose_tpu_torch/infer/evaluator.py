@@ -11,6 +11,7 @@ port does not copy that.
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Mapping, Optional, Union
 
@@ -24,6 +25,7 @@ from ..data.preprocess import preprocess_batch
 from ..data.rhd import RHDDataset
 from ..device import resolve_device
 from ..models import build_model
+from ..train.checkpoints import load_variables
 from ..train.steps import make_fused_eval_step
 
 Weights = Union[str, Mapping[str, np.ndarray], None]
@@ -31,10 +33,13 @@ Weights = Union[str, Mapping[str, np.ndarray], None]
 
 def load_weights(model, weights: Weights):
     """``weights``: None (keep the seeded init), a path to an ``.npz`` of
-    flattened flax variables, or such a mapping."""
+    flattened flax variables, a checkpoint directory the Worker wrote
+    (its ``variables.npz``), or such a mapping."""
     if weights is None:
         return model
-    if isinstance(weights, str):
+    if isinstance(weights, str) and os.path.isdir(weights):
+        weights = load_variables(weights)
+    elif isinstance(weights, str):
         with np.load(weights) as f:
             weights = {k: f[k] for k in f.files}
     return load_flax_variables(model, weights)

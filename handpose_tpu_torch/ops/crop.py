@@ -8,7 +8,7 @@ reference's int truncation; the resize is two separable batched gathers
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -42,11 +42,18 @@ def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
 def compute_crop_params(keypoint_uv21: torch.Tensor,
                         keypoint_vis21: torch.Tensor,
                         image_hw: tuple[int, int],
-                        crop_size: int) -> CropParams:
+                        crop_size: int,
+                        center_noise: Optional[torch.Tensor] = None,
+                        scale_noise: Optional[torch.Tensor] = None,
+                        offset_noise: Optional[torch.Tensor] = None
+                        ) -> CropParams:
     """Crop window of reference dataloaderRHD.py:297-343, batched.
 
-    The JAX function's crop noise arguments are train-time augmentations
-    and wait for the training slice.
+    The train-time noises, each optional: ``center_noise`` (B, 2) (y, x)
+    is added to the centre before the extent is computed
+    (dataloaderRHD.py:304-306); ``scale_noise`` (B,) multiplies the scale
+    after its ``[1, 10]`` clip (:308-310); ``offset_noise`` (B, 2) moves
+    the centre after the extent (:359-361).
     """
     H, W = image_hw
     u = keypoint_uv21[..., 0]
@@ -63,6 +70,9 @@ def compute_crop_params(keypoint_uv21: torch.Tensor,
     has_in = n_in > 0
     center_y = torch.where(has_in, mean_v, crop_size / 2.0)
     center_x = torch.where(has_in, mean_u, crop_size / 2.0)
+    if center_noise is not None:
+        center_y = center_y + center_noise[:, 0]
+        center_x = center_x + center_noise[:, 1]
 
     # crop extent: min/max over visible keypoints, clamped to the image
     big = torch.tensor(1e9, dtype=u.dtype, device=u.device)
@@ -80,10 +90,16 @@ def compute_crop_params(keypoint_uv21: torch.Tensor,
     ext_x = torch.maximum(max_x - center_x, center_x - min_x)
     crop_size_best = (2.0 * torch.maximum(ext_y, ext_x) + 20.0).clamp(50.0, 500.0)
     scale = _rdiv(crop_size, crop_size_best).clamp(1.0, 10.0)
+    if scale_noise is not None:
+        scale = scale * scale_noise
+    if offset_noise is not None:
+        center_y = center_y + offset_noise[:, 0]
+        center_x = center_x + offset_noise[:, 1]
     # int() truncation of python / torch (dataloaderRHD.py:364)
     css = torch.trunc(_rdiv(crop_size, scale)).to(torch.int32)
 
-    # start clamped inside the image, window length >= 1
+    # start clamped inside the image, window length >= 1: a noisy centre
+    # can land past the border
     y1 = torch.trunc(center_y - css // 2).to(torch.int32).clamp(0, H - 1)
     x1 = torch.trunc(center_x - css // 2).to(torch.int32).clamp(0, W - 1)
     y2 = torch.where(y1 + css < H, y1 + css, H)

@@ -67,6 +67,30 @@ class TrainState:
         self.step += 1
         return self
 
+    def state_dict(self) -> dict:
+        """What a checkpoint keeps beside the variables: the schedule's
+        count and Adam's ``state_dict`` (its moments and per-parameter
+        step, the bias correction's count)."""
+        return {"step": self.step, "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore :meth:`state_dict`'s output.  Raises ``ValueError`` when
+        Adam's state does not fit the parameters, and then leaves the
+        optimizer and the count as they were."""
+        before = self.optimizer.state_dict()
+        self.optimizer.load_state_dict(sd["optimizer"])
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                shapes = {tuple(v.shape) for k, v in
+                          self.optimizer.state.get(p, {}).items()
+                          if k != "step"}
+                if shapes - {tuple(p.shape)}:
+                    self.optimizer.load_state_dict(before)
+                    raise ValueError(f"Adam state of shapes {shapes} does "
+                                     "not fit a parameter of shape "
+                                     f"{tuple(p.shape)}")
+        self.step = int(sd["step"])
+
 
 def create_train_state(model: nn.Module, cfg,
                        steps_per_epoch: int = 1) -> TrainState:

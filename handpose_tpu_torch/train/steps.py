@@ -3,9 +3,11 @@
 Port of ``handpose_tpu/train/steps.py``: ``_forward`` (:44-64),
 ``compute_losses`` for trainer-B models (:67-88), ``_accum_grads``
 (:132-174), ``make_train_step`` (:177-199), ``_eval_metrics``
-(:202-223), ``_accum_eval`` with its gcd rule (:226-259), and the fused
-steps (:277-303, :345-383).  PyTorch runs eagerly, so a "fused" step is
-one Python function on device tensors rather than one compiled program.
+(:202-223), ``_accum_eval`` with its gcd rule (:226-259),
+``make_eval_step`` (:262-274), and the fused steps with the train-time
+augmentations (:277-303, :345-383).  PyTorch runs eagerly, so a "fused"
+step is one Python function on device tensors rather than one compiled
+program.
 A train step returns ``(state, losses)`` like the JAX step; it updates
 the model's parameters, Adam's moments and the BatchNorm statistics in
 place, where JAX returns a new state.
@@ -14,12 +16,12 @@ place, where JAX returns a new state.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..config import Config
-from ..data.preprocess import RawBatch, model_input
+from ..data.preprocess import AugmentDraws, RawBatch, model_input
 from ..losses import masked_l2_loss, rot_mat_mse
 from ..metrics import masked_sum_count, mpjpe
 from .state import TrainState
@@ -67,13 +69,17 @@ def compute_losses(out, batch: dict, cfg: Config) -> Dict[str, torch.Tensor]:
             "loss": loss_xyz + loss_rot}
 
 
+def _batch_size(data) -> int:
+    """The batch axis of a RawBatch or a sample dict."""
+    if isinstance(data, dict):
+        return next(iter(data.values())).shape[0]
+    return data[0].shape[0]
+
+
 def _split(data, k: int):
     """``data`` (a RawBatch or a sample dict) cut into ``k`` equal
     microbatches along the batch axis."""
-    if isinstance(data, dict):
-        B = next(iter(data.values())).shape[0]
-    else:
-        B = data[0].shape[0]
+    B = _batch_size(data)
     if B % k:
         raise ValueError(f"grad_accum={k} does not divide batch dim {B}")
     m = B // k
@@ -85,21 +91,28 @@ def _split(data, k: int):
 
 
 def _accum_grads(grad_one: Callable, state: TrainState, data,
-                 k: int) -> Dict[str, torch.Tensor]:
+                 k: int, draws: Optional[AugmentDraws] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Gradients over ``data`` into the parameters' ``.grad``, optionally
     over ``k`` sequential microbatches (``cfg.grad_accum``); returns the
     loss dict.
 
-    ``grad_one(data_i)`` runs one microbatch's forward and backward
-    (adding its mean-loss gradient to ``.grad``) and returns its losses.
+    ``grad_one(data_i, draws_i)`` runs one microbatch's forward and
+    backward (adding its mean-loss gradient to ``.grad``) and returns its
+    losses.
     For ``k > 1`` the summed gradient is divided by ``k`` (the mean over
     microbatches), BatchNorm normalises per microbatch and its running
     statistics take momentum once per microbatch, and the loss dicts are
-    averaged: the JAX function's semantics."""
+    averaged: the JAX function's semantics.  Injected augmentation
+    ``draws`` for the whole batch are cut along the batch axis with it;
+    without them each microbatch draws its own, as the JAX step splits its
+    key per microbatch."""
     state.optimizer.zero_grad(set_to_none=True)
     if k == 1:
-        return grad_one(data)
-    parts = [grad_one(d) for d in _split(data, k)]
+        return grad_one(data, draws)
+    parts = [grad_one(d, dr) for d, dr in
+             zip(_split(data, k), [None] * k if draws is None
+                 else draws.split(k))]
     with torch.no_grad():
         for p in state.model.parameters():
             if p.grad is not None:
@@ -109,8 +122,9 @@ def _accum_grads(grad_one: Callable, state: TrainState, data,
 
 
 def _grad_one_on(model, cfg: Config) -> Callable[[dict], dict]:
-    """The gradient closure on a preprocessed sample dict."""
-    def grad_one(batch: dict) -> dict:
+    """The gradient closure on a preprocessed sample dict (augmented, if
+    at all, when it was made: ``draws`` is always None here)."""
+    def grad_one(batch: dict, draws=None) -> dict:
         losses = compute_losses(_forward(model, batch, cfg, True), batch, cfg)
         losses["loss"].backward()
         return {k: v.detach() for k, v in losses.items()}
@@ -133,32 +147,43 @@ def make_train_step(model, cfg: Config):
 
 
 def _make_fused_grad_one(model, cfg: Config, preprocess_fn,
-                         pp_kwargs: dict) -> Callable[[RawBatch], dict]:
-    """The raw-batch gradient closure of the fused step: device
-    preprocessing (no gradient: labels and network input, the JAX step's
-    ``stop_gradient``), then forward and backward."""
+                         pp_kwargs: dict, aug_flags: Optional[dict] = None
+                         ) -> Callable:
+    """The raw-batch gradient closure of the fused step,
+    ``grad_one(raw, draws=None, generator=None)``: device preprocessing
+    with the augmentations of ``aug_flags`` that are on (no gradient:
+    labels and network input, the JAX step's ``stop_gradient``), then
+    forward and backward."""
     _check_trainer_b(cfg)
     _check_remat(cfg)
     grad_one = _grad_one_on(model, cfg)
+    flags = {k: True for k, v in (aug_flags or {}).items() if v}
 
-    def fused_grad_one(raw: RawBatch) -> dict:
+    def fused_grad_one(raw: RawBatch, draws=None, generator=None) -> dict:
         with torch.no_grad():
-            batch = preprocess_fn(raw, **pp_kwargs)
+            batch = preprocess_fn(raw, **pp_kwargs, **flags, draws=draws,
+                                  generator=generator)
         return grad_one(batch)
 
     return fused_grad_one
 
 
 def make_fused_train_step(model, cfg: Config, preprocess_fn,
-                          pp_kwargs: dict):
-    """``train_step(state, raw)`` on a raw batch -> ``(state, losses)``:
-    preprocessing, forward, trainer-B loss, backward and the Adam update.
-    The train-time augmentations wait for a later slice (ROADMAP.md,
-    queue 1): ``preprocess_fn`` raises if asked for them."""
-    grad_one = _make_fused_grad_one(model, cfg, preprocess_fn, pp_kwargs)
+                          pp_kwargs: dict, aug_flags: Optional[dict] = None):
+    """``train_step(state, raw, generator=None, draws=None)`` on a raw
+    batch -> ``(state, losses)``: preprocessing with the augmentations of
+    ``aug_flags`` that are on, forward, trainer-B loss, backward and the
+    Adam update.  The augmentations draw from ``generator`` (a
+    ``torch.Generator`` on the batch's device), or take ``draws`` for the
+    whole batch (the tests inject the JAX step's)."""
+    grad_one = _make_fused_grad_one(model, cfg, preprocess_fn, pp_kwargs,
+                                    aug_flags)
 
-    def train_step(state: TrainState, raw: RawBatch):
-        losses = _accum_grads(grad_one, state, raw, cfg.grad_accum)
+    def train_step(state: TrainState, raw: RawBatch, generator=None,
+                   draws: Optional[AugmentDraws] = None):
+        losses = _accum_grads(
+            lambda r, d: grad_one(r, d, generator), state, raw,
+            cfg.grad_accum, draws)
         return state.apply_gradients(), losses
 
     return train_step
@@ -173,20 +198,34 @@ def _eval_metrics(out, batch: dict, cfg: Config) -> Dict[str, torch.Tensor]:
             "mpjpe_sum": s, "mpjpe_count": n}
 
 
-def _accum_eval(metrics_one: Callable[[RawBatch], dict], raw: RawBatch,
-                k: int) -> Dict[str, torch.Tensor]:
-    """Metrics over ``raw`` in gcd(k, B) equal microbatches (``k`` =
-    ``cfg.grad_accum``): ``_sum``/``_count`` keys add, per-batch means
-    average."""
-    B = raw.image.shape[0]
-    k = math.gcd(k, B)
+def _accum_eval(metrics_one: Callable, data, k: int
+                ) -> Dict[str, torch.Tensor]:
+    """Metrics over ``data`` (a raw batch or a sample dict) in gcd(k, B)
+    equal microbatches (``k`` = ``cfg.grad_accum``): ``_sum``/``_count``
+    keys add, per-batch means average."""
+    k = math.gcd(k, _batch_size(data))
     if k == 1:
-        return metrics_one(raw)
-    parts = [metrics_one(r) for r in _split(raw, k)]
+        return metrics_one(data)
+    parts = [metrics_one(r) for r in _split(data, k)]
     return {key: (torch.stack([p[key] for p in parts]).sum(0)
                   if key.endswith(("_sum", "_count"))
                   else torch.stack([p[key] for p in parts]).mean(0))
             for key in parts[0]}
+
+
+def make_eval_step(model, cfg: Config) -> Callable[[dict], dict]:
+    """``eval_step(batch)`` on a preprocessed sample dict -> the metrics
+    of :func:`make_fused_eval_step` (the fake-data path's validation)."""
+    _check_trainer_b(cfg)
+
+    def metrics_one(batch: dict) -> dict:
+        return _eval_metrics(forward(model, batch, cfg), batch, cfg)
+
+    @torch.inference_mode()
+    def eval_step(batch: dict) -> dict:
+        return _accum_eval(metrics_one, batch, cfg.grad_accum)
+
+    return eval_step
 
 
 def make_fused_eval_step(model, cfg: Config, preprocess_fn,

@@ -169,3 +169,38 @@ def assert_trajectory_close(want: dict, got: dict):
         n_off += int((diff > 1e-4).sum())
         n_all += diff.size
     assert n_off <= n_all // 100, (n_off, n_all)
+
+
+def jax_draws(key, B: int, image_hw, map_hw, random_crop_size: int = 0):
+    """The augmentation draws of the JAX ``preprocess_batch`` for ``key``,
+    made as that function makes them (``jax.random.split(key, 7)``, then
+    one call per augmentation, ``fold_in(rngs[6], 1)`` for the random
+    crop's x offset), as the port's ``AugmentDraws`` on the host.  Drawn
+    in one jitted function, as the JAX function draws them inside its
+    own."""
+    import jax
+    import jax.numpy as jnp
+    from handpose_tpu_torch.data.preprocess import AugmentDraws
+    H, W = image_hw
+    rc = random_crop_size
+
+    @jax.jit
+    def draw(k):
+        r = jax.random.split(k, 7)
+        return (2.5 * jax.random.normal(r[0], (B, 42, 2)),
+                jax.random.uniform(r[1], (B,), minval=-0.1, maxval=0.1),
+                20.0 * jax.random.normal(r[2], (B, 2)),
+                jax.random.uniform(r[3], (B,)) * 0.2 + 1.0,
+                10.0 * jax.random.normal(r[4], (B, 2)),
+                jax.random.bernoulli(r[5], 1.0 - 0.8, (B, 21) + tuple(map_hw)),
+                jnp.stack([jax.random.randint(r[6], (B,), 0, H - rc + 1),
+                           jax.random.randint(jax.random.fold_in(r[6], 1),
+                                              (B,), 0, W - rc + 1)], -1))
+
+    out = [torch.from_numpy(np.array(a)) for a in draw(key)]
+    out[-1] = out[-1].to(torch.int64)
+    return AugmentDraws(*out)
+
+
+AUG_FLAGS = ("coord_uv_noise", "hue_aug", "crop_center_noise",
+             "crop_scale_noise", "crop_offset_noise", "scoremap_dropout")

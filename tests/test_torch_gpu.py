@@ -91,6 +91,42 @@ def test_serving_path_runs_the_kernel(cuda):
         assert err <= 1e-4
 
 
+def test_augmented_preprocess_on_the_card_matches_the_host(cuda):
+    """All six augmentations on the card, with draws made there from a
+    card generator and handed to the host path too: every key of the
+    sample dict within float32 rounding (K1 against the plain render on
+    jittered coordinates, crop windows exact), one K1 launch."""
+    from handpose_tpu_torch.data.preprocess import (draw_augmentations,
+                                                    preprocess_batch)
+    from handpose_tpu_torch.data.rhd import RHDDataset, write_synthetic_rhd
+    import tempfile
+    flags = dict(coord_uv_noise=True, hue_aug=True, crop_center_noise=True,
+                 crop_scale_noise=True, crop_offset_noise=True,
+                 scoremap_dropout=True)
+    with tempfile.TemporaryDirectory() as root:
+        write_synthetic_rhd(root, "evaluation", n=8, seed=2)
+        raw = RHDDataset(root, "evaluation").raw_batch(range(8))
+    host_raw = raw.to("cpu")
+    card_raw = raw.to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    draws = draw_augmentations(set(flags), (8, (320, 320), (64, 64), 0), g)
+    before = scoremap_cuda.KERNEL.launches
+    card = preprocess_batch(card_raw, crop_size=64, draws=draws, **flags)
+    torch.cuda.synchronize()
+    assert scoremap_cuda.KERNEL.launches == before + 1
+    host = preprocess_batch(
+        host_raw, crop_size=64, **flags,
+        draws=type(draws)(*(None if d is None else d.cpu() for d in draws)))
+    for k, a in host.items():
+        b = card[k].cpu()
+        assert b.dtype == a.dtype and b.shape == a.shape, k
+        if a.dtype.is_floating_point:
+            assert float((b - a).abs().max()) <= 1e-5 * max(
+                1.0, float(a.abs().max())), k
+        else:
+            assert torch.equal(a, b), k
+
+
 def _moment_inputs(N, C, dtype, dev, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = (torch.randn(N, C, generator=g, device=dev) + 0.5).to(dtype)

@@ -123,6 +123,31 @@ def test_crop_params_exact_vs_jitted_jax():
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
 
 
+@pytest.mark.parametrize("noises", ["center", "scale", "offset", "all"])
+def test_crop_params_under_noise_exact_vs_jitted_jax(noises):
+    """CropParams equal to the jitted JAX function's on 1,024 random
+    hands under the crop centre, scale and offset noise of the
+    augmentations (N(0, 20^2), U(0, 1) * 0.2 + 1, N(0, 10^2)), alone
+    and together: noisy centres past the border exercise the start and
+    length clamps, scales up to 12 the truncation."""
+    uv, vis = _random_crop_inputs(1024, seed=11)
+    rng = np.random.default_rng(12)
+    noise = {"center": (20 * rng.normal(size=(1024, 2))).astype(np.float32),
+             "scale": (rng.uniform(size=1024) * 0.2 + 1).astype(np.float32),
+             "offset": (10 * rng.normal(size=(1024, 2))).astype(np.float32)}
+    on = list(noise) if noises == "all" else [noises]
+    args = [noise[k] if k in on else None for k in noise]
+    jp = jax.jit(lambda u, v, c, s, o: jops.compute_crop_params(
+        u, v, (320, 320), 256, c, s, o))(uv, vis, *args)
+    tp = ops.compute_crop_params(T(uv), T(vis), (320, 320), 256,
+                                 *[None if a is None else T(a) for a in args])
+    for name, a, b in zip(tp._fields, jp, tp):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+    if noises == "all":
+        y1 = tp.y1.numpy()
+        assert (y1 == 0).any() and (tp.len_y.numpy() < 256).any()
+
+
 def test_crop_resize_and_geometry_vs_jax():
     rng = np.random.default_rng(3)
     uv, vis = _random_crop_inputs(6, seed=3)

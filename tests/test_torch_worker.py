@@ -10,11 +10,13 @@ A 12-sample RHD tree (both splits) from the port's
 * a non-finite loss aborts with ``FloatingPointError``;
 * ``python -m handpose_tpu_torch.train --device cpu --fast_debug ...``
   exits 0;
-* the Worker and the CLI default to the card and raise without one, and
-  what waits for later slices raises ``NotImplementedError``.
+* the Worker and the CLI default to the card and raise without one;
+  what waits for later slices (other datasets, ``remat``) raises
+  ``NotImplementedError``, and the terminal transforms ``ValueError``.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -42,6 +44,14 @@ def tree(tmp_path_factory):
     return root
 
 
+@pytest.fixture
+def logs(tmp_path):
+    """A log directory, removed after the test: every epoch's end writes
+    a checkpoint of ~300 MB (the trunks' variables and Adam's moments)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 def _cfg(root, logs, **kw):
     return Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
                   dataset_name="RHD", dataset_root_dir=root,
@@ -50,8 +60,8 @@ def _cfg(root, logs, **kw):
                   save_log_dir=str(logs), **kw)
 
 
-def test_worker_epoch_and_validation_equal_to_the_evaluator(tree, tmp_path):
-    worker = Worker(_cfg(tree, tmp_path), device="cpu")
+def test_worker_epoch_and_validation_equal_to_the_evaluator(tree, logs):
+    worker = Worker(_cfg(tree, logs), device="cpu")
     assert worker.steps_per_epoch == N // BATCH
     best = worker.run()
     assert worker.state.step == 3 and len(worker.step_seconds) == 3
@@ -61,13 +71,13 @@ def test_worker_epoch_and_validation_equal_to_the_evaluator(tree, tmp_path):
     line = next(t for t in log.splitlines()
                 if t.startswith("Training Epoch: 000"))
     assert np.isfinite(float(line.rsplit("loss: ", 1)[1].split(",")[0]))
-    ev = Evaluator(_cfg(tree, tmp_path),
+    ev = Evaluator(_cfg(tree, logs),
                    weights=export_flax_variables(worker.model), device="cpu")
     assert np.isfinite(best) and best == ev.evaluate()
 
 
-def test_worker_aborts_on_a_non_finite_loss(tree, tmp_path):
-    worker = Worker(_cfg(tree, tmp_path), device="cpu")
+def test_worker_aborts_on_a_non_finite_loss(tree, logs):
+    worker = Worker(_cfg(tree, logs), device="cpu")
     with torch.no_grad():
         worker.model.PosePrior_net.mlp.Dense_0.bias.fill_(float("nan"))
     with pytest.raises(FloatingPointError, match="epoch 0 iter 0"):
@@ -75,16 +85,16 @@ def test_worker_aborts_on_a_non_finite_loss(tree, tmp_path):
     assert "FATAL: non-finite loss" in open(worker.log_path).read()
 
 
-def test_train_cli_fast_debug_exits_0(tree, tmp_path):
-    weights = str(tmp_path / "w.npz")
-    worker = Worker(_cfg(tree, tmp_path), device="cpu")
+def test_train_cli_fast_debug_exits_0(tree, logs):
+    weights = str(logs / "w.npz")
+    worker = Worker(_cfg(tree, logs), device="cpu")
     np.savez(weights, **export_flax_variables(worker.model))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"
     res = subprocess.run(
         [sys.executable, "-m", "handpose_tpu_torch.train", "--device", "cpu",
          "--fast_debug", "--data_root", tree, "--batch_size", str(BATCH),
-         "--max_epoch", "1", "--log_dir", str(tmp_path / "cli"),
+         "--max_epoch", "1", "--log_dir", str(logs / "cli"),
          "--weights", weights, "--set", f"input_img_shape={CROP},{CROP}",
          "--set", "compute_dtype=float32"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
@@ -102,11 +112,11 @@ def test_worker_defaults_to_the_card_and_waits_where_it_should(tree,
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--data_root", tree, "--set",
                   f"save_log_dir={tmp_path}"])
-    for kw in (dict(hue_aug=True), dict(resume_weight_path="ckpt"),
-               dict(use_fake_data=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-            Worker(cfg.replace(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        Worker(cfg, device="cpu").enable_preemption_save()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 3"):
+        Worker(cfg.replace(dataset_name="InterHand2.6M"), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 9"):
+        Worker(cfg.replace(remat=True), device="cpu")
+    with pytest.raises(ValueError, match="incompatible with training"):
+        Worker(cfg.replace(scale_to_size=True), device="cpu")
     with pytest.raises(SystemExit):
         main(["--model", "MANO3DHandPose", "--device", "cpu"])
