@@ -5,8 +5,14 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the serving and training paths from
-   handpose_tpu_torch/csrc, one nvcc per source, all started together;
-3. kernel phases: each kernel against its plain PyTorch version on the
+   handpose_tpu_torch/csrc, and the host image codecs (csrc/imageio.cpp,
+   g++), one compiler per source, all started together;
+3. decode phase: a 520-sample RHD tree of PNGs from the port's writer;
+   its decoded cache built (timed) and equal to the written pixels; the
+   PNG pair decode rate; a smooth 512x334 frame through the JPEG writer
+   and decoder within quantisation (PSNR >= 40 dB); five Evaluator passes
+   decoding the PNGs against five on the cache;
+4. kernel phases: each kernel against its plain PyTorch version on the
    card at the shapes its path gives it and at edge cases, then timed
    with CUDA events beside the least time the card could take (its
    bound) and, where one exists, one PyTorch call computing the same
@@ -21,16 +27,15 @@
      at b16, odd and tile-edge shapes, C = 5 and 3 and a tie-heavy input:
      equal support, within one ulp; timed, with its registers and
      resident blocks per SM;
-4. serving phase: a 520-sample synthetic RHD tree in the decoded-cache
-   form; the Evaluator at batch 256 (two full batches and one of 8) and
-   ``serve`` on one batch, full width (crop 256, 21 input channels, two
-   ResNet-18 trunks), bf16 compute, seeded weights.  Checks finite
-   outputs, one scoremap launch per batch, agreement with the same
-   pipeline with the plain render substituted, agreement of the card with
-   the host path (which the CPU tests hold to the JAX package) on a small
-   batch, and the ground-truth reprojection of the preprocessing; then
-   times the layers;
-5. training phase, full width, b256, bf16, bn_variance 'fast', Adam with
+5. serving phase: the tree through its decoded cache; the Evaluator at
+   batch 256 (two full batches and one of 8) and ``serve`` on one batch,
+   full width (crop 256, 21 input channels, two ResNet-18 trunks), bf16
+   compute, seeded weights.  Checks finite outputs, one scoremap launch
+   per batch, agreement with the same pipeline with the plain render
+   substituted, agreement of the card with the host path (which the CPU
+   tests hold to the JAX package) on a small batch, and the ground-truth
+   reprojection of the preprocessing; then times the layers;
+6. training phase, full width, b256, bf16, bn_variance 'fast', Adam with
    the cosine LR, on the same tree (its one split trains and validates):
    one fused train step through the kernels against the same step from
    the same state with the plain K1, K2 and K3 substituted, held to a
@@ -39,19 +44,33 @@
    ``Worker`` for two epochs (4 train steps, whole-split validation after
    each), with every launch count read around it; then the step's layer
    times and peak memory;
-6. augmented training phase: the same Worker with all six train-time
+7. augmented training phase: the same Worker with all six train-time
    augmentations on (uv, crop centre, scale and offset noise, hue,
-   scoremap dropout, drawn on the card): launch counts as in 5, finite
+   scoremap dropout, drawn on the card): launch counts as in 6, finite
    losses, the draws' statistics over the run (dropout keep share 0.2 +-
    0.001, uv noise std 2.5 +- 0.05 px); its checkpoint/ and model_best/
    (write time, bytes); a second Worker resumed from checkpoint/, whose
    params, statistics and Adam state must be bit-equal; the Evaluator on
    model_best/, whose MPJPE must equal the run's best exactly; then the
    step's layer times beside the plain step's;
-7. preemption phase: a request inside step 3 pins the checkpoint to
+8. preemption phase: a request inside step 3 pins the checkpoint to
    epoch 1, and a Worker resumed from it restarts epoch 1 from the
    preempted state (bit-equal) and runs it to the end;
-8. prints the ``kernels`` line, the card line and, last, the result line.
+9. InterHand2.6M serving phase: a synthetic tree of 2 x 520 JPEG frames
+   of 512x334, one in four 334x512 (``pad_to="auto"`` pads them to
+   512x512); the val split's cache (timed) and its JPEG decode rate; K1
+   on the InterHand coordinates against its plain version (<= 1e-6);
+   the Evaluator's ``evaluate_full`` (one K1 launch a batch, finite
+   MPJPE, a PCK curve that never falls) and ``serve``; card against host
+   (f32); the device-resident b256 serving rate; five Evaluator passes
+   decoding the JPEGs against five on the cache;
+10. InterHand training phase: the Worker at b256 with its two
+   augmentations (uv noise, scoremap dropout), two epochs through the
+   caches: launch counts as in 6, the dropout's keep share, the
+   Evaluator on model_best equal to the run's best, the step's split and
+   peak memory;
+11. prints the ``kernels`` line (launches summed over every path), the
+   card line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero; without a card, or
 without the package beside it, it exits non-zero before printing results.
@@ -59,6 +78,7 @@ Imports nothing of JAX.
 """
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -246,10 +266,10 @@ def serving_phase(dev, root, raw_host):
 
     cfg = Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
                  dataset_name="RHD", dataset_root_dir=root,
-                 infer_batch_size=BATCH)
+                 infer_batch_size=BATCH, cache_decoded=True)
     check(cfg.crop_size == 256 and cfg.compute_dtype == "bfloat16",
           "full width: crop 256, bf16 compute, f32 params")
-    ds = RHDDataset(root, "evaluation")
+    ds = RHDDataset(root, "evaluation", cache_decoded=True)
     raw_dev = raw_host.to(dev)
     kernel = scoremap_cuda.KERNEL
 
@@ -546,7 +566,7 @@ def step_split(worker, raw):
     """Layer times of one b256 step on the Worker's path (its
     augmentations drawn from its generator), device resident:
     preprocessing, forward and loss, backward and Adam."""
-    from handpose_tpu_torch.data.preprocess import preprocess_batch
+    from handpose_tpu_torch.data.preprocess import preprocess_fn_for
     from handpose_tpu_torch.infer.evaluator import serving_kwargs
     from handpose_tpu_torch.train import compute_losses
     from handpose_tpu_torch.train.steps import _forward
@@ -554,11 +574,12 @@ def step_split(worker, raw):
                             worker.generator)
     flags = {k: True for k, on in worker.aug_flags.items() if on}
     pp = serving_kwargs(cfg)
+    preprocess = preprocess_fn_for(raw)
 
     def prep():
         if flags:
-            return preprocess_batch(raw, **pp, **flags, generator=g)
-        return preprocess_batch(raw, **pp)
+            return preprocess(raw, **pp, **flags, generator=g)
+        return preprocess(raw, **pp)
 
     def fwd_loss():
         with torch.no_grad():
@@ -582,7 +603,8 @@ def train_config(root, logs, **kw):
     return Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
                   dataset_name="RHD", dataset_root_dir=root,
                   batch_size=BATCH, infer_batch_size=BATCH, max_epoch=2,
-                  use_val_dataset_to_debug=True, save_log_dir=logs, **kw)
+                  use_val_dataset_to_debug=True, save_log_dir=logs,
+                  cache_decoded=True, **kw)
 
 
 def reset_counts():
@@ -600,7 +622,7 @@ def check_worker_launches(worker, what):
     K3 twice a step, all tiled, dy never copied."""
     k1, k2, k3 = _counts()
     steps = worker.state.step
-    n_val = 2 * -(-N_SAMPLES // BATCH)
+    n_val = 2 * -(-len(worker.val_ds) // BATCH)
     launches = [k1.launches, k2.launches, k3.launches]
     check(launches == [steps + n_val, 40 * steps, 2 * steps],
           f"{what}: launched K1 {launches[0]} (= {steps} steps + {n_val} "
@@ -949,9 +971,316 @@ def preemption_phase(dev, root):
             saved["epoch"], "resumed_val_mpjpe_mm": best}
 
 
+# ---------------------------------------------------------------------------
+# image decode: the RHD PNG tree, its cache, the Evaluator on both
+
+
+def decode_phase(dev, root, written):
+    """The cache built from the tree's PNGs (timed) holds exactly the
+    pixels the writer was given; the PNG pair decode rate at
+    ``num_workers`` threads; a smooth 512x334 JPEG decodes within JPEG
+    quantisation of its source; five Evaluator passes decoding the PNGs
+    per batch against five on the cache, in turns."""
+    from handpose_tpu_torch import Config
+    from handpose_tpu_torch.data import imageio
+    from handpose_tpu_torch.data.rhd import RHDDataset
+    from handpose_tpu_torch.infer import Evaluator
+
+    cfg = Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
+                 dataset_name="RHD", dataset_root_dir=root,
+                 infer_batch_size=BATCH)
+    threads, S = cfg.num_workers, cfg.image_size[0]
+    t0 = time.perf_counter()
+    ds = RHDDataset(root, "evaluation", threads, S, cache_decoded=True)
+    cache_s = time.perf_counter() - t0
+    d = os.path.join(root, "evaluation")
+    same = all(
+        np.array_equal(ds._color_mm[i],
+                       written[os.path.join(d, "color", f"{i:05d}.png")])
+        and np.array_equal(ds._mask_mm[i],
+                           written[os.path.join(d, "mask", f"{i:05d}.png")])
+        for i in range(N_SAMPLES))
+    check(same, f"the decoded cache of {N_SAMPLES} PNG pairs equals the "
+          "written pixels exactly")
+    cpaths = [os.path.join(d, "color", f"{i:05d}.png")
+              for i in range(N_SAMPLES)]
+    mpaths = [p.replace("color", "mask") for p in cpaths]
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        imageio.decode_batch(cpaths, S, S, 3, threads)
+        imageio.decode_batch(mpaths, S, S, 1, threads)
+        rates.append(N_SAMPLES / (time.perf_counter() - t0))
+
+    # a smooth frame through the port's JPEG writer and decoder
+    y, x = np.mgrid[0:512, 0:334]
+    smooth = np.stack([127 + 100 * np.sin(x / 37.0 + c) * np.cos(y / 53.0 - c)
+                       for c in range(3)], -1).astype(np.uint8)
+    jpg = os.path.join(root, "smooth.jpg")
+    imageio.write_jpeg(jpg, smooth)
+    back = imageio.decode_batch([jpg], 512, 334)[0]
+    mse = float(((back.astype(np.float64) - smooth) ** 2).mean())
+    psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+    check(psnr >= 40.0, f"a smooth 512x334 frame through the JPEG writer "
+          f"(quality 95, 4:2:0) and decoder: PSNR {psnr:.2f} dB >= 40")
+
+    ev_png = Evaluator(cfg, device=dev)
+    ev_cache = Evaluator(cfg.replace(cache_decoded=True), device=dev)
+    for ev in (ev_png, ev_cache):
+        ev.evaluate(max_batches=1)
+    passes = {"png": [], "cache": []}
+    results = {"png": [], "cache": []}
+    for _ in range(5):
+        for name, ev in (("png", ev_png), ("cache", ev_cache)):
+            t0 = time.perf_counter()
+            results[name].append(ev.evaluate())
+            torch.cuda.synchronize()
+            passes[name].append(N_SAMPLES / (time.perf_counter() - t0))
+    check(len(set(results["png"] + results["cache"])) == 1,
+          f"Evaluator MPJPE from PNGs == from the cache, every pass: "
+          f"{results['png'][0]!r} mm")
+    out = {"cache_build_s": cache_s,
+           "cache_build_img_per_s": N_SAMPLES / cache_s,
+           "png_pair_decode_img_per_s": rates, "decode_threads": threads,
+           "smooth_jpeg_psnr_db": psnr,
+           "evaluator_img_per_s_png": passes["png"],
+           "evaluator_img_per_s_cache": passes["cache"]}
+    print(f"decode: cache of {N_SAMPLES} PNG pairs in {cache_s:.3f} s, PNG "
+          f"pairs {max(rates):.1f} img/s at {threads} threads; Evaluator "
+          f"from PNGs {np.median(passes['png']):.1f} img/s, from the cache "
+          f"{np.median(passes['cache']):.1f} img/s (medians of 5)",
+          flush=True)
+    del ev_png, ev_cache
+    return out
+
+
+# ---------------------------------------------------------------------------
+# InterHand2.6M: serving and training
+
+
+# (H, W) of the synthetic frames: InterHand's 512x334 portrait captures
+# and one in four landscape, so pad_to="auto" pads every frame
+IH_SIZES = [(512, 334), (512, 334), (512, 334), (334, 512)]
+
+
+def interhand_config(root, **kw):
+    from handpose_tpu_torch import Config
+    return Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
+                  dataset_name="InterHand2.6M", dataset_root_dir=root,
+                  batch_size=BATCH, infer_batch_size=BATCH, **kw)
+
+
+def interhand_serving_phase(dev, root):
+    """The val split's cache (timed) and its JPEG decode rate; K1 on the
+    InterHand coordinates against its plain version; the Evaluator's
+    evaluate_full (one K1 launch a batch, finite MPJPE, a PCK curve that
+    never falls) and serve; the card against the host, float32; the
+    device-resident b256 serving rate and its layers; five Evaluator
+    passes decoding the JPEGs against five on the cache."""
+    from handpose_tpu_torch.data import imageio
+    from handpose_tpu_torch.data.interhand import InterHandDataset
+    from handpose_tpu_torch.data.preprocess import preprocess_interhand_batch
+    from handpose_tpu_torch.infer import (Evaluator, load_serving_model,
+                                          serve)
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch.ops import heatmap, scoremap_cuda
+
+    cfg = interhand_config(root, cache_decoded=True)
+    threads = cfg.num_workers
+    t0 = time.perf_counter()
+    ds = InterHandDataset(root, cfg.interhand_eval_split, cfg.fast_trainval,
+                          cfg.trans_test, cfg.input_img_shape, threads,
+                          pad_to="auto", cache_decoded=True)
+    cache_s = time.perf_counter() - t0
+    pad = tuple(max(hw[k] for hw in IH_SIZES) for k in (0, 1))
+    check(ds.pad_to == pad and len(ds) == N_SAMPLES,
+          f"InterHand val split: {len(ds)} frames of {sorted(set(IH_SIZES))}"
+          f" padded to {ds.pad_to}")
+    paths = [e["img_path"] for e in ds.datalist]
+    hw = [(e["height"], e["width"]) for e in ds.datalist]
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        imageio.decode_padded(paths, hw, ds.pad_to, threads)
+        rates.append(N_SAMPLES / (time.perf_counter() - t0))
+    raw_host = ds.raw_batch(range(BATCH))
+    raw = raw_host.to(dev)
+    pp = serving_kwargs(cfg)
+    crop, sigma = cfg.crop_size, cfg.sigma
+
+    # K1 on the InterHand path's coordinates, plain and with uv noise
+    kernel, plain = scoremap_cuda.render_gaussian_maps_cuda, \
+        heatmap.render_gaussian_maps
+    g = torch.Generator(device=dev).manual_seed(13)
+    max_err = 0.0
+    with torch.inference_mode():
+        for name, kw in (("serving", {}),
+                         ("uv noise", {"coord_uv_noise": True,
+                                       "generator": g})):
+            s = preprocess_interhand_batch(raw, crop_size=crop, sigma=sigma,
+                                           switch_joint_order=False, **kw)
+            c = torch.stack([s["keypoint_uv21"][..., 1],
+                             s["keypoint_uv21"][..., 0]], -1).contiguous()
+            v = s["keypoint_vis21"].contiguous()
+            del s
+            err = float((kernel(c, (crop, crop), sigma, v)
+                         - plain(c, (crop, crop), sigma, v)).abs().max())
+            max_err = max(max_err, err)
+            check(err <= 1e-6, f"scoremap kernel == plain on the InterHand "
+                  f"{name} coordinates: max |diff| {err:.3g} <= 1e-6")
+
+    ev = Evaluator(cfg, device=dev)
+    server = load_serving_model(cfg, device=dev)
+    ev.evaluate_full(max_batches=1)
+    torch.cuda.synchronize()
+    # ---- the main path, with the launch count read around it ----
+    k1 = scoremap_cuda.KERNEL
+    k1.launches = 0
+    full = ev.evaluate_full()
+    torch.cuda.synchronize()
+    eval_launches = k1.launches
+    xyz, uv = serve(server, raw, cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = k1.launches
+    n_batches = -(-N_SAMPLES // BATCH)
+    check(eval_launches == n_batches and launches == n_batches + 1,
+          f"InterHand: scoremap launched once per Evaluator batch "
+          f"({eval_launches} for {n_batches}) and once by serve")
+    curve = np.asarray(full["pck"])
+    check(np.isfinite(full["mpjpe"]) and full["mpjpe"] > 0
+          and bool(np.all(np.diff(curve) >= 0)) and 0 <= curve[0]
+          and curve[-1] <= 1,
+          f"InterHand evaluate_full: MPJPE {full['mpjpe']:.4f} mm, PCK "
+          f"{curve[0]:.4f} at 20 mm to {curve[-1]:.4f} at 50 mm, never "
+          f"falling, AUC {full['auc_20_50mm']:.4f}")
+    check(tuple(xyz.shape) == (BATCH, 21, 3)
+          and bool(torch.isfinite(xyz).all() and torch.isfinite(uv).all()),
+          "InterHand serve: finite (B, 21, 3) and (B, 21, 2)")
+
+    cfg32 = cfg.replace(compute_dtype="float32")
+    small = ds.raw_batch(range(4))
+    host = serve(load_serving_model(cfg32, device="cpu"), small, cfg32,
+                 device="cpu")
+    card = serve(load_serving_model(cfg32, device=dev), small, cfg32,
+                 device=dev)
+    errs = [rel_err(a, b) for a, b in zip(host, card)]
+    check(max(errs) <= F32_RTOL,
+          f"InterHand card vs host path, f32, b4: xyz {errs[0]:.3g}, uv "
+          f"{errs[1]:.3g} of range <= {F32_RTOL}")
+
+    with torch.inference_mode():
+        serve_ms = cuda_ms(lambda: serve(server, raw, cfg, dev), 5)
+        preprocess_ms = cuda_ms(
+            lambda: preprocess_interhand_batch(raw, **pp), 5)
+    ev_jpeg = Evaluator(cfg.replace(cache_decoded=False), device=dev)
+    ev_jpeg.evaluate(max_batches=1)
+    passes = {"jpeg": [], "cache": []}
+    for _ in range(5):
+        for name, e in (("jpeg", ev_jpeg), ("cache", ev)):
+            t0 = time.perf_counter()
+            e.evaluate()
+            torch.cuda.synchronize()
+            passes[name].append(N_SAMPLES / (time.perf_counter() - t0))
+    out = {"cache_build_s": cache_s, "jpeg_decode_img_per_s": rates,
+           "decode_threads": threads, "frame_hw": IH_SIZES,
+           "pad_to": list(ds.pad_to),
+           "mpjpe_mm": full["mpjpe"], "pck": curve.tolist(),
+           "auc_20_50mm": full["auc_20_50mm"],
+           "serve_img_per_s_b256_device_resident": BATCH / serve_ms * 1e3,
+           "serve_ms": serve_ms, "preprocess_ms": preprocess_ms,
+           "forward_ms": serve_ms - preprocess_ms,
+           "evaluator_img_per_s_jpeg": passes["jpeg"],
+           "evaluator_img_per_s_cache": passes["cache"],
+           "scoremap_max_abs_err": max_err}
+    print(f"InterHand serving b{BATCH}: {BATCH / serve_ms * 1e3:.1f} img/s "
+          f"device resident (preprocess {preprocess_ms:.3f} ms of "
+          f"{serve_ms:.3f}); JPEG {max(rates):.1f} img/s at {threads} "
+          f"threads; Evaluator from JPEGs "
+          f"{np.median(passes['jpeg']):.1f} img/s, from the cache "
+          f"{np.median(passes['cache']):.1f} img/s", flush=True)
+    del ev, ev_jpeg, server
+    torch.cuda.empty_cache()
+    return out, launches, max_err
+
+
+def interhand_training_phase(dev, root):
+    """The InterHand Worker at b256 with both of its augmentations, two
+    epochs through the decoded cache: launch counts, finite losses, the
+    dropout's keep share; the Evaluator on model_best equals the run's
+    best; the step's layer times and peak memory."""
+    from handpose_tpu_torch.data import preprocess as pp_mod
+    from handpose_tpu_torch.infer import Evaluator
+    from handpose_tpu_torch.train import Worker
+
+    logs = tempfile.mkdtemp(dir=root)
+    cfg = interhand_config(root, max_epoch=2, save_log_dir=logs,
+                           cache_decoded=True, coord_uv_noise=True,
+                           scoremap_dropout=True)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    stats = {"keep": zero.clone(), "elements": zero.clone()}
+    draw = pp_mod.draw_augmentations
+
+    def counting_draw(flags, shapes, generator):
+        d = draw(flags, shapes, generator)
+        stats["keep"] += d.dropout_keep.sum()
+        stats["elements"] += d.dropout_keep.numel()
+        return d
+
+    worker = Worker(cfg, run_dir=logs, device=dev)
+    check(sorted(f for f, on in worker.aug_flags.items() if on)
+          == ["coord_uv_noise", "scoremap_dropout"],
+          "InterHand Worker: the two InterHand augmentations on")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(pp_mod, "draw_augmentations", counting_draw):
+        best = worker.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = worker.state.step
+    check(steps == 4, f"InterHand Worker took {steps} train steps over 2 "
+          "epochs")
+    launches = check_worker_launches(worker, "InterHand Worker run")
+    losses = epoch_losses(worker)
+    check(len(losses) == 2 and all(np.isfinite(losses)),
+          f"InterHand Worker: finite epoch training losses {losses}")
+    keep = float(stats["keep"] / stats["elements"])
+    check(abs(keep - 0.2) <= 1e-3, f"InterHand dropout keep share "
+          f"{keep:.6f} = 0.2 +- 0.001 ({int(stats['elements'])} elements)")
+    ev_mpjpe = Evaluator(cfg, weights=os.path.join(logs, "model_best"),
+                         device=dev).evaluate()
+    check(np.isfinite(best) and ev_mpjpe == best,
+          f"InterHand Evaluator on model_best: {ev_mpjpe!r} mm == the "
+          f"Worker's best validation MPJPE {best!r}")
+    raw = worker.train_ds.raw_batch(range(BATCH)).to(dev)
+    split = step_split(worker, raw)
+    med = float(np.median(worker.step_seconds[1:]))
+    out = {"steps": steps, "epoch_losses": losses, "val_mpjpe_mm": best,
+           "evaluator_model_best_mpjpe_mm": ev_mpjpe, "run_s": t_run,
+           "step_s": worker.step_seconds,
+           "median_step_ms_after_first": med * 1e3,
+           "train_img_per_s_median_after_first": BATCH / med, **split,
+           "max_memory_allocated_bytes": peak,
+           "launches": dict(zip(("scoremap", "moments", "pool_bwd"),
+                                launches)),
+           "dropout_keep_share": keep}
+    print(f"InterHand training b{BATCH}: median step {med * 1e3:.1f} ms "
+          f"after the first, step {split['step_ms']:.3f} ms = preprocess "
+          f"{split['preprocess_ms']:.3f} + forward {split['forward_ms']:.3f}"
+          f" + backward and Adam {split['backward_and_update_ms']:.3f}; "
+          f"validation MPJPE {best:.4f} mm; peak {peak} B", flush=True)
+    del worker
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
+    from handpose_tpu_torch.data import imageio
+    from handpose_tpu_torch.data.interhand import write_synthetic_interhand
     from handpose_tpu_torch.data.rhd import RHDDataset, write_synthetic_rhd
     from handpose_tpu_torch.ops import (cuda_build, moments_cuda,
                                         pool_bwd_cuda, scoremap_cuda)
@@ -964,21 +1293,38 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    sources = [m.SOURCE for m in (scoremap_cuda, moments_cuda, pool_bwd_cuda)]
+    sources = [m.SOURCE for m in (scoremap_cuda, moments_cuda, pool_bwd_cuda,
+                                  imageio)]
     t0 = time.perf_counter()
     logs = cuda_build.build_many(sources)
-    print(f"built {sources} in {time.perf_counter() - t0:.1f} s (one nvcc "
-          "each, together)", flush=True)
+    print(f"built {sources} in {time.perf_counter() - t0:.1f} s (one "
+          "compiler each, together)", flush=True)
     for name, log in logs.items():
         if log:
-            print(f"--- nvcc {name}.cu ---\n{log.strip()}", flush=True)
+            print(f"--- {cuda_build.source_path(name).name} ---\n"
+                  f"{log.strip()}", flush=True)
 
     with tempfile.TemporaryDirectory() as root:
+        # the RHD tree as PNGs, each written array kept to check the
+        # decoded cache against
+        written = {}
+        write_png = imageio.write_png
+
+        def recording_write(path, img):
+            written[path] = np.array(img)
+            write_png(path, img)
+
         t0 = time.perf_counter()
-        write_synthetic_rhd(root, "evaluation", n=N_SAMPLES, seed=0)
-        print(f"wrote the {N_SAMPLES}-sample tree in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        raw_host = RHDDataset(root, "evaluation").raw_batch(range(BATCH))
+        with mock.patch.object(imageio, "write_png", recording_write):
+            write_synthetic_rhd(root, "evaluation", n=N_SAMPLES, seed=0)
+        rhd_write_s = time.perf_counter() - t0
+        print(f"wrote the {N_SAMPLES}-sample RHD tree (PNGs) in "
+              f"{rhd_write_s:.1f} s", flush=True)
+        decode = decode_phase(dev, root, written)
+        decode["rhd_tree_write_s"] = rhd_write_s
+        del written
+        raw_host = RHDDataset(root, "evaluation",
+                              cache_decoded=True).raw_batch(range(BATCH))
         k1 = scoremap_phase(dev, raw_host)
         k2 = moments_phase(dev)
         k3 = pool_bwd_phase(dev)
@@ -991,23 +1337,45 @@ def main():
         augmented, (k1_aug, k2_aug, k3_aug) = augmented_training_phase(
             dev, root, raw_host, training)
         preemption = preemption_phase(dev, root)
+        ih_root = os.path.join(root, "interhand")
+        t0 = time.perf_counter()
+        for split, seed in (("train", 1), ("val", 2)):
+            write_synthetic_interhand(ih_root, split, n=N_SAMPLES,
+                                      seed=seed, image_sizes=IH_SIZES)
+        ih_write_s = time.perf_counter() - t0
+        print(f"wrote the InterHand tree (2 x {N_SAMPLES} JPEG frames) in "
+              f"{ih_write_s:.1f} s", flush=True)
+        ih_serving, k1_ih_serving, ih_k1_err = interhand_serving_phase(
+            dev, ih_root)
+        ih_serving["tree_write_s"] = ih_write_s
+        ih_training, (k1_ih_train, k2_ih_train, k3_ih_train) = \
+            interhand_training_phase(dev, ih_root)
     moments_per_step(k2, k2_shapes, training["steps"])
-    k1["launches"] = k1_serving + k1_train + k1_aug
-    k1["launches_by_path"] = {"serving": k1_serving, "training": k1_train,
-                              "augmented_training": k1_aug}
-    k2["launches"] = k2_train + k2_aug
+    k1["max_abs_err"] = max(k1["max_abs_err"], ih_k1_err)
+    k1["launches_by_path"] = {
+        "serving": k1_serving, "training": k1_train,
+        "augmented_training": k1_aug, "interhand_serving": k1_ih_serving,
+        "interhand_training": k1_ih_train}
+    k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {"training": k2_train,
-                              "augmented_training": k2_aug}
-    k3["launches"] = k3_train + k3_aug
+                              "augmented_training": k2_aug,
+                              "interhand_training": k2_ih_train}
+    k2["launches"] = sum(k2["launches_by_path"].values())
     k3["launches_by_path"] = {"training": k3_train,
-                              "augmented_training": k3_aug}
+                              "augmented_training": k3_aug,
+                              "interhand_training": k3_ih_train}
+    k3["launches"] = sum(k3["launches_by_path"].values())
     k3["launches_by_variant"] = training["pool_bwd_launches_by_variant"]
-    for record in (serving, training, augmented, preemption):
+    for record in (decode, serving, training, augmented, preemption,
+                   ih_serving, ih_training):
         record["card"] = card
+    print(json.dumps({"decode": decode}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"augmented_training": augmented}), flush=True)
     print(json.dumps({"preemption": preemption}), flush=True)
+    print(json.dumps({"interhand_serving": ih_serving}), flush=True)
+    print(json.dumps({"interhand_training": ih_training}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

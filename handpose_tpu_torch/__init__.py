@@ -6,14 +6,15 @@ JAX or of ``handpose_tpu``.  Entry points take ``device=None``, meaning
 the card; pass ``device="cpu"`` to run the plain PyTorch versions of the
 kernels on the host.
 
-It covers the RHD serving and training paths of
-``Hand3DPosePriorNetwork``: device preprocessing with the scoremap
+It covers the RHD and InterHand2.6M serving and training paths of
+``Hand3DPosePriorNetwork``: its own PNG and JPEG codecs with the decoded
+caches (``csrc/imageio.cpp``), device preprocessing with the scoremap
 render as a hand-written CUDA kernel, the two ResNet-18 trunks with
 train-mode BatchNorm (its moments a CUDA kernel) and the stem max pool
 (its backward a CUDA kernel), Adam with the cosine LR, the fused train
 and eval steps with the train-time augmentations, the ``Worker`` with
 checkpoints, resume, preemption, run logging and fake data, the
-``Evaluator`` and ``serve``.
+``Evaluator`` with MPJPE, PCK and AUC, and ``serve``.
 """
 
 __version__ = "0.1.0"

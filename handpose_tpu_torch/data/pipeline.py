@@ -1,7 +1,8 @@
 """Input pipeline: threaded host collate, pinned memory, async copies.
 
 Port of ``handpose_tpu/data/pipeline.py:29,110-161``.  A worker thread
-collates raw batches from the memmap cache and copies them into pinned
+collates raw batches (RHD or InterHand2.6M: decoded from PNG/JPEG inside
+one C++ call, or read from the memmap cache) and copies them into pinned
 (page-locked) host memory; the consuming thread issues
 ``non_blocking`` host-to-device copies on the current stream, so the copy
 of batch i+1 overlaps the device work of batch i.
@@ -16,7 +17,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from .preprocess import RawBatch
+from .interhand import InterHandDataset
+from .rhd import RHDDataset
 
 COLLATE_WORKERS = 1
 
@@ -30,6 +32,21 @@ def epoch_index_chunks(n: int, batch_size: int, shuffle: bool = False,
         np.random.default_rng(seed).shuffle(order)
     end = n - (n % batch_size) if drop_remainder else n
     return [list(order[s:s + batch_size]) for s in range(0, end, batch_size)]
+
+
+def open_dataset(cfg, split: str):
+    """``split`` of ``cfg.dataset_name`` ('RHD' or 'InterHand2.6M') as
+    the JAX Worker and Evaluator open it: ``cfg.num_workers`` decode
+    threads, ``cfg.cache_decoded``, InterHand's frames zero-padded to the
+    largest annotated size."""
+    if cfg.dataset_name == "InterHand2.6M":
+        return InterHandDataset(cfg.dataset_root_dir, split,
+                                cfg.fast_trainval, cfg.trans_test,
+                                cfg.input_img_shape, cfg.num_workers,
+                                pad_to="auto",
+                                cache_decoded=cfg.cache_decoded)
+    return RHDDataset(cfg.dataset_root_dir, split, cfg.num_workers,
+                      cfg.image_size[0], cache_decoded=cfg.cache_decoded)
 
 
 def prefetch_map(fn, items, *, depth: int = 4) -> Iterator:
@@ -49,25 +66,29 @@ def prefetch_map(fn, items, *, depth: int = 4) -> Iterator:
                 f.cancel()
 
 
-def _host_tensors(raw: RawBatch, pin: bool) -> RawBatch:
+def _host_tensors(raw, pin: bool):
+    """A raw-batch NamedTuple of numpy arrays as one of host tensors of
+    the same type, pinned when ``pin``."""
     out = []
     for a in raw:
         t = torch.from_numpy(np.ascontiguousarray(a))
         out.append(t.pin_memory() if pin else t)
-    return RawBatch(*out)
+    return type(raw)(*out)
 
 
 def raw_device_batches(dataset, batch_size: int, device: torch.device, *,
                        shuffle: bool = False, seed: int = 0,
                        drop_remainder: bool = False,
-                       depth: int = 2) -> Iterator[RawBatch]:
+                       depth: int = 2) -> Iterator:
     """Raw batches as tensors on ``device``, in the order of
     :func:`epoch_index_chunks` (by default the in-order evaluation epoch,
     trailing partial batch included; training shuffles and drops it).
 
-    ``dataset`` needs ``__len__`` and ``raw_batch(indices)``.  The worker
-    thread collates (numpy, releases the interpreter lock in its copies)
-    and pins; the calling thread issues the copies to the card.
+    ``dataset`` needs ``__len__`` and ``raw_batch(indices)``, which
+    returns a raw-batch NamedTuple with ``.to`` (``RawBatch``,
+    ``InterHandRawBatch``).  The worker thread collates (the decoder and
+    numpy's copies release the interpreter lock) and pins; the calling
+    thread issues the copies to the card.
     """
     device = torch.device(device)
     pin = device.type == "cuda"

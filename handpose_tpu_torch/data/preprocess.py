@@ -1,6 +1,6 @@
-"""Device-side RHD preprocessing, serving and training paths.
+"""Device-side RHD and InterHand2.6M preprocessing, serving and training.
 
-Port of ``handpose_tpu/data/preprocess.py:32-283,319-329``: dominant-hand
+Port of ``handpose_tpu/data/preprocess.py:32-497``: dominant-hand
 selection from the mask, mirroring of left hands, root-relative,
 bone-relative and canonical transforms, crop with bilinear resize,
 intrinsics rewrite and the Gaussian scoremaps, batched on the device of
@@ -13,6 +13,9 @@ centre, scale and offset noise, hue rotation and scoremap dropout) take
 their random draws from an :class:`AugmentDraws` made on the raw batch's
 device (:func:`draw_augmentations`); the terminal dataset transforms
 ``scale_to_size`` and ``random_crop_to_size`` follow the JAX function.
+:func:`preprocess_interhand_batch` is the InterHand2.6M counterpart: the
+hand side from the annotation, the crop window from its bbox, and the
+two augmentations the reference's InterHand loader applies.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ import torch.nn.functional as F
 
 from ..ops.bone_rel import bone_rel_trafo
 from ..ops.canonical import canonical_trafo
-from ..ops.crop import (compute_crop_params, crop_intrinsics,
-                        crop_resize_bilinear, crop_resize_nearest, crop_uv)
+from ..ops.crop import (CropParams, _rdiv, compute_crop_params,
+                        crop_intrinsics, crop_resize_bilinear,
+                        crop_resize_nearest, crop_uv)
 from ..ops.scoremap_cuda import render_gaussian_maps_cuda
 
 
@@ -44,6 +48,26 @@ class RawBatch(NamedTuple):
         """Every field as a tensor on ``device`` (numpy fields converted)."""
         return RawBatch(*(torch.as_tensor(a).to(device, non_blocking=non_blocking)
                           for a in self))
+
+
+class InterHandRawBatch(NamedTuple):
+    """Host-parsed InterHand2.6M raw inputs (annotations already in RHD
+    joint order and metres)."""
+
+    image: torch.Tensor         # (B, H, W, 3) uint8 RGB (maybe zero-padded)
+    keypoint_uv: torch.Tensor   # (B, 42, 2) float32 (truncated to int on use)
+    keypoint_vis: torch.Tensor  # (B, 42) float/bool
+    keypoint_xyz: torch.Tensor  # (B, 42, 3) float32 metres
+    camera_K: torch.Tensor      # (B, 3, 3) float32
+    hand_left: torch.Tensor     # (B,) bool: annotation hand_type == 'left'
+    bbox: torch.Tensor          # (B, 4) int32 (x, y, w, h), pre-clamped
+    orig_wh: torch.Tensor       # (B, 2) int32 original (W, H) pre-padding
+
+    def to(self, device, non_blocking: bool = False) -> "InterHandRawBatch":
+        """Every field as a tensor on ``device`` (numpy fields converted)."""
+        return InterHandRawBatch(
+            *(torch.as_tensor(a).to(device, non_blocking=non_blocking)
+              for a in self))
 
 
 # MANO<->RHD joint-order switch (reference dataloaderRHD.py:587-591)
@@ -349,6 +373,161 @@ def preprocess_batch(raw: RawBatch, crop_size: int = 256, sigma: float = 25.0,
                 "hand_mask": torch.stack([(~hand_any).to(torch.int32),
                                           hand_any.to(torch.int32)], dim=-1)}
     return out
+
+
+def preprocess_interhand_batch(raw: InterHandRawBatch, crop_size: int = 256,
+                               sigma: float = 25.0,
+                               use_wrist_coord: bool = True,
+                               switch_joint_order: bool = True,
+                               calculate_scoremap: bool = True,
+                               hand_crop: bool = True,
+                               coord_uv_noise: bool = False,
+                               scoremap_dropout: bool = False,
+                               draws: Optional[AugmentDraws] = None,
+                               generator: Optional[torch.Generator] = None
+                               ) -> dict:
+    """InterHand2.6M raw tensors -> the reference sample dict, batched
+    (reference dataloaderInterHand2M6.py:180-532; JAX
+    ``preprocess_interhand_batch``).
+
+    Unlike the RHD path the hand side comes from the annotation, the crop
+    window is the pre-clamped bbox, uv is truncated to int32 on load (the
+    reference's ``torch.tensor(..., dtype=torch.int32)``), and the
+    right_hand_mask is the bbox interior inset by 10 px.  Each step keeps
+    the JAX function's types: integer uv until ``coord_uv_noise`` makes
+    it float, floor division in the palm block.  The two augmentations
+    are ``coord_uv_noise`` (N(0, 2.5^2) px on all 42 uv) and
+    ``scoremap_dropout`` (kept with p 0.2, scaled by 4); their draws are
+    ``draws`` or new ones from ``generator``, as in
+    :func:`preprocess_batch`.
+    """
+    B, H, W, _ = raw.image.shape
+    used = {"coord_uv_noise": coord_uv_noise,
+            "scoremap_dropout": scoremap_dropout and calculate_scoremap}
+    flags = [f for f, on in used.items() if on]
+    map_hw = (crop_size, crop_size) if hand_crop else (H, W)
+    if flags:
+        draws = _resolve_draws(flags, (B, (H, W), map_hw, 0), draws,
+                               generator, raw.image.device)
+    kp_uv = torch.trunc(raw.keypoint_uv).to(torch.int32)
+    kp_vis = raw.keypoint_vis.reshape(B, -1).bool()
+    kp_xyz = raw.keypoint_xyz.to(torch.float32)
+    K = raw.camera_K.to(torch.float32)
+
+    if not use_wrist_coord:
+        kp_xyz = kp_xyz.clone()
+        kp_uv = kp_uv.clone()
+        kp_vis = kp_vis.clone()
+        for r, m in ((0, 12), (21, 33)):
+            kp_xyz[:, r] = 0.5 * (kp_xyz[:, r] + kp_xyz[:, m])
+            kp_uv[:, r] = torch.div(kp_uv[:, r] + kp_uv[:, m], 2,
+                                    rounding_mode="floor")
+            kp_vis[:, r] = kp_vis[:, r] | kp_vis[:, m]
+
+    if coord_uv_noise:
+        # right after the palm block (:317-318), before the side selection
+        kp_uv = kp_uv.to(torch.float32) + draws.uv_noise
+
+    cond_left = raw.hand_left.bool()
+    orig_w = raw.orig_wh[:, 0]
+    hand_side = torch.where(cond_left, 0, 1)
+    cl3 = cond_left[:, None, None]
+    kp_xyz21 = torch.where(cl3, kp_xyz[:, :21], kp_xyz[:, 21:])
+    mirror = torch.tensor([-1.0, 1.0, 1.0], device=kp_xyz.device)
+    kp_xyz21 = torch.where(cl3, kp_xyz21 * mirror, kp_xyz21)
+    kp_vis21 = torch.where(cond_left[:, None], kp_vis[:, :21], kp_vis[:, 21:])
+    kp_uv21 = torch.where(cl3, kp_uv[:, :21], kp_uv[:, 21:])
+
+    root = kp_xyz21[:, 0, :]
+    rel = kp_xyz21 - root[:, None, :]
+    if use_wrist_coord:
+        scale = torch.sqrt(torch.sum(rel[:, 12, :] ** 2, dim=-1))
+    else:
+        scale = torch.sqrt(torch.sum((rel[:, 12, :] - rel[:, 11, :]) ** 2,
+                                     dim=-1))
+    rel_normed = rel / scale[:, None, None]
+    local = bone_rel_trafo(rel_normed)
+    can, rot = canonical_trafo(rel_normed)
+    rot_inv = rot.transpose(-1, -2)
+
+    # mirror left hands about each sample's ORIGINAL width, the padding
+    # left in place; the gather runs on the uint8 image (exact, 4x fewer
+    # bytes than on floats)
+    cols = torch.arange(W, device=raw.image.device)[None, :]
+    ow = orig_w.to(cols.dtype)[:, None]
+    mirror_col = (ow - 1 - cols).clamp(0, W - 1)
+    col_idx = torch.where(cond_left[:, None] & (cols < ow), mirror_col, cols)
+    image = torch.gather(raw.image, 2,
+                         col_idx[:, None, :, None].expand(B, H, W, 3))
+    image = image.to(torch.float32) / 255.0 - 0.5
+    u_mirr = torch.where(cond_left[:, None],
+                         orig_w.to(kp_uv21.dtype)[:, None] - kp_uv21[:, :, 0],
+                         kp_uv21[:, :, 0])
+    kp_uv21 = torch.stack([u_mirr, kp_uv21[:, :, 1]],
+                          dim=-1).to(torch.float32)
+
+    out = {
+        "image": image,
+        "hand_side": F.one_hot(hand_side, 2).to(torch.float32),
+        "keypoint_xyz21": kp_xyz21,
+        "keypoint_vis21": kp_vis21[..., None],
+        "keypoint_uv21": kp_uv21,
+        "keypoint_scale": scale[:, None],
+        "keypoint_xyz_root": root,
+        "keypoint_xyz21_rel_normed": rel_normed,
+        "keypoint_xyz21_local": local,
+        "kp_coord_xyz21_rel_can": can,
+        "rot_mat": rot_inv,
+        "camera_intrinsic_matrix": K,
+    }
+
+    if hand_crop:
+        x1, y1, w, h = raw.bbox.unbind(-1)
+        params = CropParams(y1=y1, x1=x1, len_y=h, len_x=w,
+                            scale_y=_rdiv(crop_size, h.to(torch.float32)),
+                            scale_x=_rdiv(crop_size, w.to(torch.float32)))
+        out["image_crop"] = crop_resize_bilinear(image, params, crop_size)
+        # the bbox interior inset by 10 px, nearest-resized: pixel (i, j)
+        # is 1 iff floor(i*h/S) and floor(j*w/S) lie in [10, extent - 10)
+        offset = 10
+        o = torch.arange(crop_size, device=image.device)
+        src_y = torch.div(o[None, :] * h[:, None], crop_size,
+                          rounding_mode="floor")
+        src_x = torch.div(o[None, :] * w[:, None], crop_size,
+                          rounding_mode="floor")
+        my = (src_y >= offset) & (src_y < (h - offset)[:, None])
+        mx = (src_x >= offset) & (src_x < (w - offset)[:, None])
+        out["right_hand_mask"] = (my[:, :, None]
+                                  & mx[:, None, :]).to(torch.float32)
+        kp_uv21 = crop_uv(kp_uv21, params)
+        out["keypoint_uv21"] = kp_uv21
+        out["camera_intrinsic_matrix"] = crop_intrinsics(K, params)
+    else:
+        out["right_hand_mask"] = torch.zeros((B, H, W), dtype=torch.float32,
+                                             device=image.device)
+
+    if calculate_scoremap:
+        coords_hw = torch.stack([kp_uv21[..., 1], kp_uv21[..., 0]], dim=-1)
+        scoremap = render_gaussian_maps_cuda(coords_hw, map_hw, sigma,
+                                             kp_vis21)
+        if scoremap_dropout:
+            # torch F.dropout(p=0.8) then *0.8 (:549-552), as the RHD path
+            scoremap = scoremap * draws.dropout_keep \
+                / (1.0 - _P_DROP) * _P_DROP
+        out["scoremap"] = scoremap
+
+    if switch_joint_order:
+        for key in ("keypoint_vis21", "keypoint_uv21", "keypoint_xyz21"):
+            out[key] = out[key][:, _SWITCH_PERM]
+    return out
+
+
+def preprocess_fn_for(raw):
+    """The preprocessing of a raw batch's type (the JAX Worker's and
+    Evaluator's ``isinstance`` choice)."""
+    if isinstance(raw, InterHandRawBatch):
+        return preprocess_interhand_batch
+    return preprocess_batch
 
 
 def yiq_hue_rotate(image: torch.Tensor, turns: torch.Tensor) -> torch.Tensor:

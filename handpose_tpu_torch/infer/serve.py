@@ -3,7 +3,8 @@
 Port of the body of ``handpose_tpu/infer/export.py:80-99``
 (``export_fused_pipeline``), the program the JAX package serves: raw
 samples in, absolute 3-D keypoints and their projections in crop pixels
-out, on the ``is_inference=True`` model.
+out, on the ``is_inference=True`` model.  An RHD ``RawBatch`` or an
+``InterHandRawBatch`` goes through its own preprocessing.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Tuple
 import torch
 
 from ..config import Config
-from ..data.preprocess import RawBatch, model_input, preprocess_batch
+from ..data.preprocess import RawBatch, model_input, preprocess_fn_for
 from ..device import resolve_device
 from ..models import build_model
 from .evaluator import Weights, load_weights, serving_kwargs
@@ -29,10 +30,11 @@ def load_serving_model(cfg: Config, weights: Weights = None, device=None):
 @torch.inference_mode()
 def serve(model, raw: RawBatch, cfg: Config,
           device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(xyz (B, 21, 3), uv (B, 21, 2)) for a raw batch (numpy arrays or
+    """(xyz (B, 21, 3), uv (B, 21, 2)) for a raw batch (``RawBatch`` or
+    ``InterHandRawBatch``, of numpy arrays or
     tensors) on ``device`` (default: the card), where ``model`` lies."""
     raw = raw.to(resolve_device(device))
-    sample = preprocess_batch(raw, **serving_kwargs(cfg))
+    sample = preprocess_fn_for(raw)(raw, **serving_kwargs(cfg))
     inp = model_input(sample, cfg.input_channels)
     out = model(inp, sample["camera_intrinsic_matrix"],
                 sample["keypoint_scale"], sample["keypoint_xyz_root"])

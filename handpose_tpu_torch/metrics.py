@@ -1,7 +1,9 @@
 """Evaluation metrics.
 
-Port of ``handpose_tpu/metrics.py:12-33`` (reference
-criterions/metrics.py): visibility-masked MPJPE in millimetres.
+Port of ``handpose_tpu/metrics.py:12-74`` (reference
+criterions/metrics.py): visibility-masked MPJPE in millimetres, and the
+standard RHD protocol's PCK curve and its 20-50 mm AUC, which the
+reference does not report.
 """
 
 from __future__ import annotations
@@ -31,3 +33,36 @@ def masked_sum_count(pred_xyz: torch.Tensor, gt_xyz: torch.Tensor,
     whole-split aggregation across batches."""
     dist, v = _joint_dist(pred_xyz, gt_xyz, keypoint_vis)
     return (dist * v).sum() * 1000.0, v.sum()
+
+
+def _correct(pred_xyz, gt_xyz, keypoint_vis, thresholds):
+    dist, v = _joint_dist(pred_xyz, gt_xyz, keypoint_vis)
+    ts = torch.as_tensor(thresholds, dtype=dist.dtype, device=dist.device)
+    correct = (dist[None] < ts[:, None, None]).to(dist.dtype)
+    return (correct * v[None]).sum(dim=(1, 2)), v.sum()
+
+
+def pck(pred_xyz: torch.Tensor, gt_xyz: torch.Tensor,
+        keypoint_vis: torch.Tensor, thresholds) -> torch.Tensor:
+    """(T,) share of visible joints whose error is below each threshold
+    (metres)."""
+    correct, n = _correct(pred_xyz, gt_xyz, keypoint_vis, thresholds)
+    return correct / n.clamp(min=1.0)
+
+
+def pck_sum_count(pred_xyz: torch.Tensor, gt_xyz: torch.Tensor,
+                  keypoint_vis: torch.Tensor, thresholds):
+    """((T,) correct-joint counts, visible-joint count): :func:`pck` in
+    the form that adds up exactly over batches."""
+    return _correct(pred_xyz, gt_xyz, keypoint_vis, thresholds)
+
+
+def auc_pck(pred_xyz: torch.Tensor, gt_xyz: torch.Tensor,
+            keypoint_vis: torch.Tensor, lo: float = 0.02, hi: float = 0.05,
+            steps: int = 31) -> torch.Tensor:
+    """Area under the PCK curve between ``lo`` and ``hi`` metres (the
+    20-50 mm RHD protocol), trapezoidal, over ``hi - lo``."""
+    ts = torch.linspace(lo, hi, steps, dtype=pred_xyz.dtype,
+                        device=pred_xyz.device)
+    return torch.trapezoid(pck(pred_xyz, gt_xyz, keypoint_vis, ts),
+                           ts) / (hi - lo)

@@ -1,11 +1,15 @@
-"""Build the port's CUDA sources into shared libraries, loaded with ctypes.
+"""Build the port's native sources into shared libraries, loaded with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own:
+Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host code,
+the image decoder) has a plain C interface and compiles on its own:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+    g++ -O3 -std=c++17 -shared -fPIC -o build/kernels/lib<name>-<hash>.so \\
+         csrc/<name>.cpp -lz -lpthread
 
-The library lands in ``build/kernels/`` at the repository root (listed in
+Host code is built without ``-march=native``: the library may run on
+another machine than the one that built it.  The library lands in ``build/kernels/`` at the repository root (listed in
 ``.gitignore``) under a name that carries a hash of the source and of the
 compiler flags, so an edited source or flag rebuilds and a finished build
 is reused.  Nothing is built at import; the first launch builds, or
@@ -26,6 +30,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+CXX_LIBS = ("-lz", "-lpthread")
 
 
 def nvcc_path() -> str:
@@ -39,17 +45,40 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
+def cxx_path() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found on PATH")
+
+
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu`` or, for host code, ``csrc/<name>.cpp``."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _command(name: str, out: Path) -> list:
+    src = source_path(name)
+    if src.suffix == ".cu":
+        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [cxx_path(), *CXX_FLAGS, "-o", str(out), str(src), *CXX_LIBS]
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    src = source_path(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS + CXX_LIBS
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_many(names) -> Dict[str, Optional[str]]:
-    """Compile each ``csrc/<name>.cu`` that is not built, one ``nvcc``
-    per source, all started together.  Returns ``{name: compiler log}``
-    (the ptxas register and spill report; None for a library that was
-    already there); raises with the log of the first source that fails.
+    """Compile each source of ``names`` that is not built, one compiler
+    per source (``nvcc`` or the host's ``g++``), all started together.
+    Returns ``{name: compiler log}`` (for a kernel the ptxas register and
+    spill report; None for a library that was already there); raises
+    with the log of the first source that fails, which names a missing
+    header or library.
     """
     procs = {}
     for name in names:
@@ -59,8 +88,7 @@ def build_many(names) -> Dict[str, Optional[str]]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
         procs[name] = (lib, tmp, subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC / f"{name}.cu")],
+            _command(name, tmp),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs: Dict[str, Optional[str]] = {name: None for name in names}
     failed = []
@@ -72,7 +100,8 @@ def build_many(names) -> Dict[str, Optional[str]]:
         else:
             os.replace(tmp, lib)       # atomic: concurrent builds agree
     if failed:
-        raise RuntimeError(f"nvcc failed for {failed[0]}.cu:\n"
+        src = source_path(failed[0])
+        raise RuntimeError(f"building {src.name} failed:\n"
                            f"{logs[failed[0]]}")
     return logs
 
@@ -91,6 +120,6 @@ def vector_width(*tensors) -> int:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it."""
+    """Build ``csrc/<name>.cu`` (or ``.cpp``) if needed and load it."""
     build_many([name])
     return ctypes.CDLL(str(library_path(name)))

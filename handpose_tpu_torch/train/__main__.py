@@ -2,13 +2,17 @@
 
     python -m handpose_tpu_torch.train --data_root /data/RHD \\
         --batch_size 256 --max_epoch 60 --device cuda
+    python -m handpose_tpu_torch.train --dataset InterHand2.6M \\
+        --data_root /data/InterHand2.6M --batch_size 256 \\
+        --set cache_decoded=true
     python -m handpose_tpu_torch.train --fake_data --fast_debug
     python -m handpose_tpu_torch.train --from_run <run_dir> \\
         --resume <run_dir>/checkpoint
 
 Counterpart of the repository's ``trainval.py`` for the flags the port
-covers.  The RHD splits must hold the decoded uint8 cache (see
-``data/rhd.py``).  ``--weights`` starts from an ``.npz`` of flattened
+covers.  The datasets decode their PNGs (RHD) or JPEGs (InterHand2.6M)
+per batch, or once into a decoded cache with ``--set
+cache_decoded=true``.  ``--weights`` starts from an ``.npz`` of flattened
 flax variables (``convert.flatten_variables``) or a checkpoint
 directory; ``--resume`` resumes (same architecture: optimizer, epoch and
 best MPJPE too) or finetunes (matching params only) from a checkpoint
@@ -79,7 +83,8 @@ def main(argv=None) -> float:
                    choices=MODEL_NAMES)
     # dataset and path flags default to None, so that "given" is
     # detectable for --from_run; the defaults are in _new_config
-    p.add_argument("--dataset", default=None, choices=["RHD", "synthetic"],
+    p.add_argument("--dataset", default=None,
+                   choices=["RHD", "InterHand2.6M", "synthetic"],
                    help="default RHD")
     p.add_argument("--data_root", default=None, help="default /data/RHD")
     p.add_argument("--batch_size", type=int, default=None,

@@ -5,7 +5,10 @@ Port of ``handpose_tpu/train/steps.py``: ``_forward`` (:44-64),
 (:132-174), ``make_train_step`` (:177-199), ``_eval_metrics``
 (:202-223), ``_accum_eval`` with its gcd rule (:226-259),
 ``make_eval_step`` (:262-274), and the fused steps with the train-time
-augmentations (:277-303, :345-383).  PyTorch runs eagerly, so a "fused"
+augmentations (:277-303, :345-383).  A fused step takes the
+preprocessing it is given or, with None, the one of the raw batch's type
+(RHD or InterHand2.6M); ``pck_thresholds`` adds the PCK sums to the eval
+metrics.  PyTorch runs eagerly, so a "fused"
 step is one Python function on device tensors rather than one compiled
 program.
 A train step returns ``(state, losses)`` like the JAX step; it updates
@@ -21,9 +24,11 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..config import Config
-from ..data.preprocess import AugmentDraws, RawBatch, model_input
+from ..data.preprocess import (AugmentDraws, RawBatch, model_input,
+                               preprocess_fn_for)
 from ..losses import masked_l2_loss, rot_mat_mse
-from ..metrics import masked_sum_count, mpjpe
+from ..metrics import masked_sum_count, mpjpe, pck_sum_count
+from ..ops.projection import rel_normed_to_absolute
 from .state import TrainState
 
 _TRAINER_B = ("Hand3DPoseNet", "Hand3DPosePriorNetwork")
@@ -160,9 +165,10 @@ def _make_fused_grad_one(model, cfg: Config, preprocess_fn,
     flags = {k: True for k, v in (aug_flags or {}).items() if v}
 
     def fused_grad_one(raw: RawBatch, draws=None, generator=None) -> dict:
+        fn = preprocess_fn or preprocess_fn_for(raw)
         with torch.no_grad():
-            batch = preprocess_fn(raw, **pp_kwargs, **flags, draws=draws,
-                                  generator=generator)
+            batch = fn(raw, **pp_kwargs, **flags, draws=draws,
+                       generator=generator)
         return grad_one(batch)
 
     return fused_grad_one
@@ -189,13 +195,37 @@ def make_fused_train_step(model, cfg: Config, preprocess_fn,
     return train_step
 
 
-def _eval_metrics(out, batch: dict, cfg: Config) -> Dict[str, torch.Tensor]:
+def _absolute_xyz(out, batch: dict):
+    """(predicted, ground-truth) absolute 3-D keypoints in metres, the
+    pair the PCK curve reads.  A model with an ``xyz`` output is held to
+    ``keypoint_xyz21``, as in the JAX step.  The trainer-B models output
+    root-relative normalised coordinates in training mode; they are made
+    absolute as the serving branch makes them (``rel_normed_to_absolute``
+    with the sample's scale and root), against the ground truth's own
+    normalised coordinates, which share the model's joint order."""
+    if out.xyz is not None:
+        return out.xyz, batch["keypoint_xyz21"]
+    scale, root = batch["keypoint_scale"], batch["keypoint_xyz_root"]
+    return (rel_normed_to_absolute(out.coord_xyz_rel_normed, scale, root),
+            rel_normed_to_absolute(batch["keypoint_xyz21_rel_normed"],
+                                   scale, root))
+
+
+def _eval_metrics(out, batch: dict, cfg: Config,
+                  pck_thresholds=None) -> Dict[str, torch.Tensor]:
     losses = compute_losses(out, batch, cfg)
     gt = batch["kp_coord_xyz21_rel_can"]
     vis = batch["keypoint_vis21"]
     s, n = masked_sum_count(out.can_xyz, gt, vis)
-    return {**losses, "mpjpe": mpjpe(out.can_xyz, gt, vis),
-            "mpjpe_sum": s, "mpjpe_count": n}
+    metrics = {**losses, "mpjpe": mpjpe(out.can_xyz, gt, vis),
+               "mpjpe_sum": s, "mpjpe_count": n}
+    if pck_thresholds is not None:
+        # the same joints and visibility as the MPJPE, in metres
+        cs, cn = pck_sum_count(*_absolute_xyz(out, batch), vis,
+                               pck_thresholds)
+        metrics["pck_correct_sum"] = cs
+        metrics["pck_count"] = cn
+    return metrics
 
 
 def _accum_eval(metrics_one: Callable, data, k: int
@@ -213,13 +243,15 @@ def _accum_eval(metrics_one: Callable, data, k: int
             for key in parts[0]}
 
 
-def make_eval_step(model, cfg: Config) -> Callable[[dict], dict]:
+def make_eval_step(model, cfg: Config,
+                   pck_thresholds=None) -> Callable[[dict], dict]:
     """``eval_step(batch)`` on a preprocessed sample dict -> the metrics
     of :func:`make_fused_eval_step` (the fake-data path's validation)."""
     _check_trainer_b(cfg)
 
     def metrics_one(batch: dict) -> dict:
-        return _eval_metrics(forward(model, batch, cfg), batch, cfg)
+        return _eval_metrics(forward(model, batch, cfg), batch, cfg,
+                             pck_thresholds)
 
     @torch.inference_mode()
     def eval_step(batch: dict) -> dict:
@@ -229,15 +261,20 @@ def make_eval_step(model, cfg: Config) -> Callable[[dict], dict]:
 
 
 def make_fused_eval_step(model, cfg: Config, preprocess_fn,
-                         pp_kwargs: dict) -> Callable[[RawBatch], dict]:
-    """``eval_step(raw)`` -> metrics dict of 0-d tensors on the batch's
-    device: loss_xyz, loss_rot, loss, mpjpe, mpjpe_sum, mpjpe_count.  The
-    model runs in eval mode (running statistics)."""
+                         pp_kwargs: dict, pck_thresholds=None
+                         ) -> Callable[[RawBatch], dict]:
+    """``eval_step(raw)`` -> metrics dict of tensors on the batch's
+    device: loss_xyz, loss_rot, loss, mpjpe, mpjpe_sum, mpjpe_count (0-d)
+    and, with ``pck_thresholds`` (T,) in metres, pck_correct_sum (T,)
+    and pck_count, from the same forward.  The model runs in eval mode
+    (running statistics)."""
     _check_trainer_b(cfg)
 
     def metrics_one(raw_i: RawBatch) -> dict:
-        batch = preprocess_fn(raw_i, **pp_kwargs)
-        return _eval_metrics(forward(model, batch, cfg), batch, cfg)
+        fn = preprocess_fn or preprocess_fn_for(raw_i)
+        batch = fn(raw_i, **pp_kwargs)
+        return _eval_metrics(forward(model, batch, cfg), batch, cfg,
+                             pck_thresholds)
 
     @torch.inference_mode()
     def eval_step(raw: RawBatch) -> dict:

@@ -1,7 +1,9 @@
 """The training harness: the JAX package's ``Worker``.
 
-Port of ``handpose_tpu/train/trainer.py:44-549`` on one card: RHD
-memmap-cache datasets, ``steps_per_epoch = max(len(train) //
+Port of ``handpose_tpu/train/trainer.py:44-549`` on one card: the RHD
+and InterHand2.6M datasets (decoded per batch, or through their decoded
+caches with ``cfg.cache_decoded``; InterHand's mixed capture sizes
+zero-padded to one frame), ``steps_per_epoch = max(len(train) //
 batch_size, 1)``, a shuffled epoch order with the remainder dropped for
 training, pinned prefetch, the fused train step with the train-time
 augmentations (drawn on the card from one ``torch.Generator`` seeded
@@ -28,9 +30,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.pipeline import raw_device_batches
-from ..data.preprocess import preprocess_batch
-from ..data.rhd import RHDDataset
+from ..data.pipeline import open_dataset, raw_device_batches
 from ..data.synthetic import fake_sample_batch
 from ..device import resolve_device
 from ..models import build_model
@@ -44,6 +44,10 @@ from .steps import (make_eval_step, make_fused_eval_step,
 
 AUG_FLAGS = ("hue_aug", "coord_uv_noise", "crop_center_noise",
              "crop_scale_noise", "crop_offset_noise", "scoremap_dropout")
+# the two augmentations the reference's InterHand loader applies
+# (dataloaderInterHand2M6.py:317-318,549-552)
+INTERHAND_AUG_FLAGS = ("coord_uv_noise", "scoremap_dropout")
+DATASETS = ("RHD", "InterHand2.6M")
 FAKE_STEPS_PER_EPOCH = 10
 
 
@@ -55,10 +59,9 @@ def _check_supported(cfg: Config):
             "scale_to_size / random_crop_to_size produce reduced dataset "
             "outputs incompatible with training; use the data pipeline "
             "directly")
-    if not _is_fake(cfg) and cfg.dataset_name != "RHD":
-        raise NotImplementedError(
-            f"dataset {cfg.dataset_name!r} waits for ROADMAP.md queue 3; "
-            "the port trains on RHD and synthetic data")
+    if not _is_fake(cfg) and cfg.dataset_name not in DATASETS:
+        raise ValueError(f"dataset {cfg.dataset_name!r} not in {DATASETS} "
+                         "or 'synthetic'")
 
 
 def _is_fake(cfg: Config) -> bool:
@@ -83,22 +86,27 @@ class Worker:
         self.model = load_weights(build_model(cfg), weights).to(self.device)
         self.fused = not _is_fake(cfg)
         if self.fused:
-            train_split = ("evaluation" if cfg.use_val_dataset_to_debug
-                           else "training")
-            size = cfg.image_size[0]
-            self.train_ds = RHDDataset(cfg.dataset_root_dir, train_split,
-                                       image_size=size)
-            self.val_ds = RHDDataset(cfg.dataset_root_dir, "evaluation",
-                                     image_size=size)
+            if cfg.dataset_name == "InterHand2.6M":
+                train_split, val_split = "train", "val"
+            else:
+                train_split = ("evaluation" if cfg.use_val_dataset_to_debug
+                               else "training")
+                val_split = "evaluation"
+            self.train_ds = open_dataset(cfg, train_split)
+            self.val_ds = open_dataset(cfg, val_split)
             self.steps_per_epoch = max(len(self.train_ds) // cfg.batch_size,
                                        1)
             pp_kwargs = serving_kwargs(cfg)
-            self.aug_flags = {f: getattr(cfg, f) for f in AUG_FLAGS}
+            names = (INTERHAND_AUG_FLAGS
+                     if cfg.dataset_name == "InterHand2.6M" else AUG_FLAGS)
+            self.aug_flags = {f: getattr(cfg, f) for f in names}
+            # preprocessing=None: the steps take the raw batch's own
             self.train_step = make_fused_train_step(
-                self.model, cfg, preprocess_batch, pp_kwargs, self.aug_flags)
-            self.eval_step = make_fused_eval_step(self.model, cfg,
-                                                  preprocess_batch, pp_kwargs)
-            what = f"{len(self.train_ds)} {train_split} samples"
+                self.model, cfg, None, pp_kwargs, self.aug_flags)
+            self.eval_step = make_fused_eval_step(self.model, cfg, None,
+                                                  pp_kwargs)
+            what = (f"{len(self.train_ds)} {cfg.dataset_name} "
+                    f"{train_split} samples")
         else:
             self.train_ds = self.val_ds = None
             self.steps_per_epoch = FAKE_STEPS_PER_EPOCH

@@ -202,5 +202,39 @@ def jax_draws(key, B: int, image_hw, map_hw, random_crop_size: int = 0):
     return AugmentDraws(*out)
 
 
+def jax_interhand_draws(key, B: int, map_hw):
+    """The draws of the JAX ``preprocess_interhand_batch`` for ``key``
+    (``jax.random.split(key, 2)``: uv noise from the first, the dropout's
+    keep mask from the second), as the port's ``AugmentDraws``."""
+    import jax
+    from handpose_tpu_torch.data.preprocess import AugmentDraws
+
+    @jax.jit
+    def draw(k):
+        r = jax.random.split(k, 2)
+        return (2.5 * jax.random.normal(r[0], (B, 42, 2)),
+                jax.random.bernoulli(r[1], 1.0 - 0.8,
+                                     (B, 21) + tuple(map_hw)))
+
+    uv, keep = (torch.from_numpy(np.array(a)) for a in draw(key))
+    return AugmentDraws(uv_noise=uv, dropout_keep=keep)
+
+
+IH_FIELDS = ("image", "keypoint_uv", "keypoint_vis", "keypoint_xyz",
+             "camera_K", "hand_left", "bbox", "orig_wh")
+
+
+def interhand_raws(raw):
+    """(JAX ``InterHandRawBatch``, port ``InterHandRawBatch``) of one
+    numpy raw batch (a NamedTuple or a dict of ``IH_FIELDS``)."""
+    import jax.numpy as jnp
+    from handpose_tpu.data.preprocess import InterHandRawBatch as JBatch
+    from handpose_tpu_torch.data.preprocess import InterHandRawBatch
+    d = raw if isinstance(raw, dict) else raw._asdict()
+    return (JBatch(*(jnp.asarray(d[k]) for k in IH_FIELDS)),
+            InterHandRawBatch(*(torch.from_numpy(np.ascontiguousarray(d[k]))
+                                for k in IH_FIELDS)))
+
+
 AUG_FLAGS = ("coord_uv_noise", "hue_aug", "crop_center_noise",
              "crop_scale_noise", "crop_offset_noise", "scoremap_dropout")

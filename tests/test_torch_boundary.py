@@ -1,8 +1,9 @@
 """The port's import boundary and device defaults.
 
 ``handpose_tpu_torch`` imports neither JAX nor flax nor anything of
-``handpose_tpu``, and its entry points default to the card and raise when
-there is none.  Decided inside the tests, never at import.
+``handpose_tpu``, decodes images without loading the JAX package's
+native decoder (``native/``), and its entry points default to the card
+and raise when there is none.  Decided inside the tests, never at import.
 """
 
 import os
@@ -34,6 +35,32 @@ def test_port_imports_no_jax_flax_or_reference_package():
     n, bad = res.stdout.strip().split(" ", 1)
     assert int(n) >= 20          # every module was imported
     assert bad == "[]"
+
+
+_DECODE_PROBE = """
+import sys
+import numpy as np
+from handpose_tpu_torch.data import imageio
+path = sys.argv[1]
+imageio.write_png(path, np.zeros((4, 6, 3), np.uint8))
+assert imageio.decode_batch([path], 4, 6).shape == (1, 4, 6, 3)
+maps = open("/proc/self/maps").read()
+print("libimageio-" in maps, "fastdecode" in maps,
+      sorted(m for m in sys.modules if m.split(".")[0] in
+             ("cv2", "PIL", "jax", "handpose_tpu")))
+"""
+
+
+def test_port_decodes_with_its_own_library(tmp_path):
+    """The port's codecs run from its own library: the JAX package's
+    ``native/`` decoder is not loaded, and neither cv2 nor PIL is
+    imported."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", _DECODE_PROBE, str(tmp_path / "a.png")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "True False []"
 
 
 def test_entry_points_default_to_the_card(tmp_path):

@@ -1,8 +1,7 @@
-"""Port parity: the Evaluator and the RHD cache dataset, whole split.
+"""Port parity: the Evaluator and the RHD dataset, whole split.
 
-The port's ``write_synthetic_rhd`` writes a 10-sample tree in the decoded
-cache form; the JAX ``RHDDataset(..., cache_decoded=True)`` reads the
-same files.  The port's ``Evaluator`` (batch 4: 4 + 4 + a partial 2) is
+The port's ``write_synthetic_rhd`` writes a 10-sample tree of PNGs; the
+JAX ``RHDDataset`` reads the same files.  The port's ``Evaluator`` (batch 4: 4 + 4 + a partial 2) is
 held to the JAX fused eval step summed over the same batches, float32
 compute: rtol 1e-5 on the whole-split MPJPE, visible counts exactly.
 """
@@ -121,12 +120,32 @@ def test_evaluator_max_batches_and_nothing_visible(tree):
 
 
 def test_dataset_without_cache_names_the_way_to_build_it(tree, tmp_path):
+    """Without a cache the dataset decodes the PNGs, and a missing PNG
+    raises naming it; ``cache_decoded=True`` builds the cache, after which
+    the PNGs are no longer read."""
     import shutil
     root = str(tmp_path / "rhd")
     shutil.copytree(tree, root)
-    os.remove(os.path.join(root, "evaluation", "decoded_mask_320.u8"))
-    with pytest.raises(FileNotFoundError, match="cache_decoded=True"):
-        RHDDataset(root, "evaluation")
+    d = os.path.join(root, "evaluation")
+    for f in os.listdir(d):
+        if f.startswith("decoded_"):
+            os.remove(os.path.join(d, f))
+    missing = os.path.join(d, "mask", "00003.png")
+    os.remove(missing)
+    with pytest.raises(OSError, match="00003.png"):
+        RHDDataset(root, "evaluation").raw_batch([2, 3])
+    with pytest.raises(OSError, match="00003.png"):
+        RHDDataset(root, "evaluation", cache_decoded=True)
+    assert not [f for f in os.listdir(d) if f.startswith("decoded_")]
+    shutil.copy(os.path.join(tree, "evaluation", "mask", "00003.png"),
+                missing)
+    cached = RHDDataset(root, "evaluation", cache_decoded=True)
+    assert sorted(f for f in os.listdir(d) if f.startswith("decoded_")) \
+        == ["decoded_color_320.u8", "decoded_mask_320.u8"]
+    shutil.rmtree(os.path.join(d, "color"))
+    for a, b in zip(cached.raw_batch(range(N)),
+                    RHDDataset(tree, "evaluation").raw_batch(range(N))):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_pipeline_order_and_tensors(tree):

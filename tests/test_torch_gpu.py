@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, held to their plain versions.
 
 K1 (scoremap), K2 (BatchNorm moments) and K3 (stem max-pool backward),
+the RHD and InterHand2.6M preprocessing on the card against the host,
 and the train step routed through the kernels against the same step with
 the plain versions substituted.
 
@@ -80,7 +81,8 @@ def test_serving_path_runs_the_kernel(cuda):
                  input_img_shape=(64, 64), compute_dtype="float32")
     with tempfile.TemporaryDirectory() as root:
         write_synthetic_rhd(root, "evaluation", n=4, seed=1)
-        raw = RHDDataset(root, "evaluation").raw_batch(range(4))
+        raw = RHDDataset(root, "evaluation",
+                         cache_decoded=True).raw_batch(range(4))
     host = serve(load_serving_model(cfg, device="cpu"), raw, cfg,
                  device="cpu")
     before = scoremap_cuda.KERNEL.launches
@@ -105,7 +107,8 @@ def test_augmented_preprocess_on_the_card_matches_the_host(cuda):
                  scoremap_dropout=True)
     with tempfile.TemporaryDirectory() as root:
         write_synthetic_rhd(root, "evaluation", n=8, seed=2)
-        raw = RHDDataset(root, "evaluation").raw_batch(range(8))
+        raw = RHDDataset(root, "evaluation",
+                         cache_decoded=True).raw_batch(range(8))
     host_raw = raw.to("cpu")
     card_raw = raw.to(cuda)
     g = torch.Generator(device=cuda).manual_seed(5)
@@ -121,6 +124,43 @@ def test_augmented_preprocess_on_the_card_matches_the_host(cuda):
         b = card[k].cpu()
         assert b.dtype == a.dtype and b.shape == a.shape, k
         if a.dtype.is_floating_point:
+            assert float((b - a).abs().max()) <= 1e-5 * max(
+                1.0, float(a.abs().max())), k
+        else:
+            assert torch.equal(a, b), k
+
+
+def test_interhand_preprocess_on_the_card_matches_the_host(cuda):
+    """InterHand2.6M frames of two sizes, padded, decoded from the port's
+    JPEGs: both augmentations on the card with card-made draws, handed
+    to the host path too; every key within float32 rounding, integers,
+    booleans and right_hand_mask exact, one K1 launch."""
+    from handpose_tpu_torch.data.interhand import (InterHandDataset,
+                                                   write_synthetic_interhand)
+    from handpose_tpu_torch.data.preprocess import (
+        draw_augmentations, preprocess_interhand_batch)
+    import tempfile
+    flags = dict(coord_uv_noise=True, scoremap_dropout=True)
+    with tempfile.TemporaryDirectory() as root:
+        write_synthetic_interhand(root, "val", n=6, seed=3,
+                                  image_sizes=[(96, 64), (64, 96)])
+        raw = InterHandDataset(root, "val",
+                               pad_to="auto").raw_batch(range(6))
+    host_raw, card_raw = raw.to("cpu"), raw.to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    draws = draw_augmentations(set(flags), (6, (96, 96), (64, 64), 0), g)
+    before = scoremap_cuda.KERNEL.launches
+    card = preprocess_interhand_batch(card_raw, crop_size=64, draws=draws,
+                                      **flags)
+    torch.cuda.synchronize()
+    assert scoremap_cuda.KERNEL.launches == before + 1
+    host = preprocess_interhand_batch(
+        host_raw, crop_size=64, **flags,
+        draws=type(draws)(*(None if d is None else d.cpu() for d in draws)))
+    for k, a in host.items():
+        b = card[k].cpu()
+        assert b.dtype == a.dtype and b.shape == a.shape, k
+        if a.dtype.is_floating_point and k != "right_hand_mask":
             assert float((b - a).abs().max()) <= 1e-5 * max(
                 1.0, float(a.abs().max())), k
         else:
@@ -236,7 +276,8 @@ def test_train_step_kernels_against_plain(cuda):
                  input_img_shape=(64, 64), compute_dtype="float32")
     with tempfile.TemporaryDirectory() as root:
         write_synthetic_rhd(root, "evaluation", n=4, seed=1)
-        raw = RHDDataset(root, "evaluation").raw_batch(range(4)).to(cuda)
+        raw = RHDDataset(root, "evaluation",
+                         cache_decoded=True).raw_batch(range(4)).to(cuda)
     pp = dict(crop_size=64, sigma=cfg.sigma, switch_joint_order=True)
     base = build_model(cfg).to(cuda)
     runs = []

@@ -11,8 +11,9 @@ A 12-sample RHD tree (both splits) from the port's
 * ``python -m handpose_tpu_torch.train --device cpu --fast_debug ...``
   exits 0;
 * the Worker and the CLI default to the card and raise without one;
-  what waits for later slices (other datasets, ``remat``) raises
-  ``NotImplementedError``, and the terminal transforms ``ValueError``.
+  what waits for later slices (``remat``) raises
+  ``NotImplementedError``; an unknown dataset and the terminal transforms
+  raise ``ValueError``.
 """
 
 import os
@@ -112,8 +113,8 @@ def test_worker_defaults_to_the_card_and_waits_where_it_should(tree,
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--data_root", tree, "--set",
                   f"save_log_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 3"):
-        Worker(cfg.replace(dataset_name="InterHand2.6M"), device="cpu")
+    with pytest.raises(ValueError, match="not in"):
+        Worker(cfg.replace(dataset_name="COCO"), device="cpu")
     with pytest.raises(NotImplementedError, match="queue 9"):
         Worker(cfg.replace(remat=True), device="cpu")
     with pytest.raises(ValueError, match="incompatible with training"):

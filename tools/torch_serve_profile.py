@@ -62,7 +62,7 @@ def main():
     cfg = Config(model_name="Hand3DPosePriorNetwork", input_channels=21)
     with tempfile.TemporaryDirectory() as root:
         write_synthetic_rhd(root, "evaluation", n=args.batch, seed=0)
-        raw = RHDDataset(root, "evaluation").raw_batch(
+        raw = RHDDataset(root, "evaluation", cache_decoded=True).raw_batch(
             range(args.batch)).to(dev)
     model = load_serving_model(cfg, device=dev)
     for _ in range(2):

@@ -73,7 +73,7 @@ def main():
                  batch_size=args.batch)
     with tempfile.TemporaryDirectory() as root:
         write_synthetic_rhd(root, "evaluation", n=args.batch, seed=0)
-        raw = RHDDataset(root, "evaluation").raw_batch(
+        raw = RHDDataset(root, "evaluation", cache_decoded=True).raw_batch(
             range(args.batch)).to(dev)
     model = build_model(cfg).to(dev)
     state = create_train_state(model, cfg)
