@@ -20,9 +20,10 @@
    - K1 scoremap (serving and training preprocessing), also on the
      coordinates uv and crop noise give it (fractional, below -1, in
      (-1, 0), past H - 1);
-   - K2 BatchNorm moments at every BN shape of the b256 trunk, bf16,
-     shift 0 and nonzero, each sum to 1e-5 of its scale, bit-identical
-     over two runs;
+   - K2 BatchNorm moments at every BN shape of the b256 ResNet-18 and
+     ResNet-50 trunks (17 shapes, C up to 2048), bf16, shift 0 and
+     nonzero, each sum to 1e-5 of its scale, bit-identical over two runs,
+     and in float32 at the widest rows (C = 2048 and 1024);
    - K3 stem max-pool backward at the b256 stem shape, the float32 stem
      at b16, odd and tile-edge shapes, C = 5 and 3 and a tie-heavy input:
      equal support, within one ulp; timed, with its registers and
@@ -69,8 +70,24 @@
    caches: launch counts as in 6, the dropout's keep share, the
    Evaluator on model_best equal to the run's best, the step's split and
    peak memory;
-11. prints the ``kernels`` line (launches summed over every path), the
-   card line and, last, the result line.
+11. ResNet-50 serving phase: Hand3DPoseNet at full width (crop 256, 3
+   input channels, 1024-d features, bf16, the k3s2 stem) through the
+   Evaluator (one K1 launch a batch) and ``serve``, the card against the
+   host (f32, b4), the device-resident b256 rate and its layers;
+12. ResNet-50 training phases: the Worker of Hand3DPoseNet,
+   OnlyThreeDimHandPose and TwoDimHandPose at b256, two epochs of two
+   steps each: K1 once a step or batch, K2 53 times a step at the 12
+   ResNet-50 BN shapes the K2 phase held, K3 once a step, tiled; finite
+   losses (TwoDimHandPose's ``loss_uv`` in pixels, over 1e5 in the
+   total); the Evaluator on model_best equal to the run's best; the
+   step's split and peak memory;
+13. stems phase: the ResNet-50 trunk under k3s2_s2d equal to k3s2 with
+   the same weights (f32, TF32 off, 1e-5 of range); each stem's conv and
+   trunk forward timed at b256; Hand3DPoseNet with the k7s2 stem trains
+   one fused step through K1, K2 and K3;
+14. prints the ``kernels`` line (launches summed over every path; K2's
+   time per step of the flagship and of ResNet-50), the card line and,
+   last, the result line.
 
 Any failed check raises, so the script exits non-zero; without a card, or
 without the package beside it, it exits non-zero before printing results.
@@ -103,7 +120,27 @@ BN_SHAPES = (("stem", BATCH * 128 * 128, 64, 1),
              ("stage2", BATCH * 32 * 32, 128, 5),
              ("stage3", BATCH * 16 * 16, 256, 5),
              ("stage4", BATCH * 8 * 8, 512, 5))
+# the same for the b256 crop-256 ResNet-50 trunk of Hand3DPoseNet,
+# OnlyThreeDimHandPose and TwoDimHandPose: 53 per step at 12 shapes,
+# C = 2048 (K2's float32 limit) included
+BN50_SHAPES = (("stem", BATCH * 128 * 128, 64, 1),
+               ("stage1", BATCH * 64 * 64, 64, 6),
+               ("stage1 out", BATCH * 64 * 64, 256, 4),
+               ("stage2 in", BATCH * 64 * 64, 128, 1),
+               ("stage2", BATCH * 32 * 32, 128, 7),
+               ("stage2 out", BATCH * 32 * 32, 512, 5),
+               ("stage3 in", BATCH * 32 * 32, 256, 1),
+               ("stage3", BATCH * 16 * 16, 256, 11),
+               ("stage3 out", BATCH * 16 * 16, 1024, 7),
+               ("stage4 in", BATCH * 16 * 16, 512, 1),
+               ("stage4", BATCH * 8 * 8, 512, 5),
+               ("stage4 out", BATCH * 8 * 8, 2048, 4))
+# (N, C) that K2 is also held at in float32: the widest rows
+F32_MOMENT_SHAPES = ((BATCH * 8 * 8, 2048), (BATCH * 16 * 16, 1024))
 STEM = (BATCH, 64, 128, 128)     # the stem pool's input, NCHW
+# the ResNet-50 models on the RHD tree: 3 input channels (the image crop)
+RESNET50_MODELS = ("Hand3DPoseNet", "OnlyThreeDimHandPose",
+                   "TwoDimHandPose")
 
 
 def check(ok, what):
@@ -382,22 +419,26 @@ def serving_phase(dev, root, raw_host):
 
 
 def moments_phase(dev):
-    """K2 against its plain version at every BN shape of the b256 trunk
-    (bf16, shift 0 and nonzero; each sum to MOMENTS_RTOL of the channel's
-    sum of |x - shift|; bit-identical over two runs), then timed."""
+    """K2 against its plain version at every BN shape of the b256 ResNet-18
+    and ResNet-50 trunks (bf16, shift 0 and nonzero; each sum to
+    MOMENTS_RTOL of the channel's sum of |x - shift|; bit-identical over
+    two runs), and in float32 at the widest rows (C = 2048 needs all 512
+    threads of a block for one row), then timed in bf16."""
     from handpose_tpu_torch.ops import moments, moments_cuda
     kernel, plain = moments_cuda.shifted_moments_cuda, moments.shifted_moments
     g = torch.Generator(device=dev).manual_seed(2)
+    shapes = {}
+    for name, N, C, _ in BN_SHAPES + BN50_SHAPES:
+        shapes.setdefault((N, C), name)
     max_err, rows = 0.0, []
-    for name, N, C, _ in BN_SHAPES:
-        x = (torch.randn(N, C, generator=g, device=dev) + 0.5).to(
-            torch.bfloat16)
-        shift = torch.randn(C, generator=g, device=dev) * 0.1 + 0.25
+
+    def hold(x, shift, what):
+        nonlocal max_err
         for sh in (torch.zeros_like(shift), shift):
             a, b = kernel(x, sh), kernel(x, sh)
             torch.cuda.synchronize()
             check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
-                  f"moments kernel deterministic, {name} ({N}, {C})")
+                  f"moments kernel deterministic, {what}")
             p = plain(x, sh)
             d = x.to(torch.float32) - sh
             scales = (d.abs().sum(0), p[1])
@@ -407,9 +448,18 @@ def moments_phase(dev):
             max_err = max(max_err, max(float((k - r).abs().max())
                                        for k, r in zip(a, p)))
             check(rel <= MOMENTS_RTOL,
-                  f"moments kernel == plain, {name} ({N}, {C}), shift "
+                  f"moments kernel == plain, {what}, shift "
                   f"{'0' if not sh.any() else 'nonzero'}: {rel:.3g} of "
                   f"sum|x - shift| <= {MOMENTS_RTOL}")
+
+    for (N, C), name in shapes.items():
+        x32 = torch.randn(N, C, generator=g, device=dev) + 0.5
+        x = x32.to(torch.bfloat16)
+        shift = torch.randn(C, generator=g, device=dev) * 0.1 + 0.25
+        hold(x, shift, f"{name} ({N}, {C}) bf16")
+        if (N, C) in F32_MOMENT_SHAPES:
+            hold(x32, shift, f"{name} ({N}, {C}) f32")
+        del x32
         side = int(round((N // BATCH) ** 0.5))      # the activation's H, W
         x4 = x.view(BATCH, side, side, C).permute(0, 3, 1, 2)
         row = {"name": name, "rows": N, "channels": C,
@@ -440,18 +490,22 @@ def moments_phase(dev):
             "by_shape": rows}
 
 
-def moments_per_step(k2, by_shape, steps):
-    """Each shape's launches in the Worker's run (counted at the launch
-    site, by (N, C)) and, from them and the kernel phase's times at that
-    shape, the kernel's time per train step."""
-    for r in k2["by_shape"]:
-        r["launches"] = by_shape[(r["rows"], r["channels"])]
-    k2["per_step"] = {k: sum(r[k] * r["launches"] for r in k2["by_shape"])
-                      / steps
-                      for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    print(f"moments per train step ({sum(by_shape.values()) // steps} "
-          f"launches): kernel {k2['per_step']['ms']:.4f} ms, bound "
-          f"{k2['per_step']['bound_ms']:.4f} ms", flush=True)
+def moments_per_step(k2, by_shape, steps, what):
+    """From one Worker run's launches of K2 (counted at the launch site, by
+    (N, C)) and the kernel phase's times at each shape: the kernel's time
+    per train step (``k2["per_step_" + what]``); each shape's row adds
+    the run's launches."""
+    rows = {(r["rows"], r["channels"]): r for r in k2["by_shape"]}
+    for shape, n in by_shape.items():
+        r = rows[shape]
+        r["launches"] = r.get("launches", 0) + n
+    per = {k: sum(rows[shape][k] * n for shape, n in by_shape.items())
+           / steps for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    k2[f"per_step_{what}"] = per
+    print(f"moments per {what} train step ({sum(by_shape.values()) // steps}"
+          f" launches): kernel {per['ms']:.4f} ms, bound "
+          f"{per['bound_ms']:.4f} ms, var_mean {per['library_ms']:.4f} ms",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -616,25 +670,28 @@ def reset_counts():
     k3.by_variant.clear()
 
 
-def check_worker_launches(worker, what):
+def check_worker_launches(worker, what, bn_shapes=BN_SHAPES, trunks=2):
     """The launch counts of a Worker's run from reset_counts(): K1 once a
-    step or validation batch, K2 40 times a step at the held BN shapes,
-    K3 twice a step, all tiled, dy never copied."""
+    step or validation batch, K2 at the held BN shapes of its ``trunks``
+    trunks (40 a step for the flagship's two ResNet-18s, 53 for one
+    ResNet-50), K3 once a trunk and step, all tiled, dy never copied."""
     k1, k2, k3 = _counts()
     steps = worker.state.step
     n_val = 2 * -(-len(worker.val_ds) // BATCH)
+    per_step = trunks * sum(n for _, _, _, n in bn_shapes)
     launches = [k1.launches, k2.launches, k3.launches]
-    check(launches == [steps + n_val, 40 * steps, 2 * steps],
+    check(launches == [steps + n_val, per_step * steps, trunks * steps],
           f"{what}: launched K1 {launches[0]} (= {steps} steps + {n_val} "
-          f"validation batches), K2 {launches[1]} (= 40 x {steps}), K3 "
-          f"{launches[2]} (= 2 x {steps}) times")
-    check(dict(k3.by_variant) == {"tiled": 2 * steps} and k3.dy_copies == 0,
+          f"validation batches), K2 {launches[1]} (= {per_step} x {steps}), "
+          f"K3 {launches[2]} (= {trunks} x {steps}) times")
+    check(dict(k3.by_variant) == {"tiled": trunks * steps}
+          and k3.dy_copies == 0,
           f"{what}: K3 only through the tiled variant ({dict(k3.by_variant)})"
           f", dy never copied into channels_last ({k3.dy_copies})")
-    check(dict(k2.by_shape) == {(N, C): 2 * per_trunk * steps
-                                for _, N, C, per_trunk in BN_SHAPES},
+    check(dict(k2.by_shape) == {(N, C): trunks * n * steps
+                                for _, N, C, n in bn_shapes},
           f"{what}: K2 at the BN shapes the K2 phase held and timed, as "
-          f"often as the two trunks hold them: {dict(k2.by_shape)}")
+          f"often as the trunks hold them: {dict(k2.by_shape)}")
     return launches
 
 
@@ -1276,6 +1333,257 @@ def interhand_training_phase(dev, root):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# the ResNet-50 models: Hand3DPoseNet serving and training, the trainer-A
+# Workers, the three stems
+
+
+def resnet50_config(root, model="Hand3DPoseNet", logs="logs", **kw):
+    """A ResNet-50 model at full width on the RHD tree: crop 256, 3 input
+    channels (the image crop, the CLI's default), resnet_out_feature_dim
+    1024, bf16 compute, f32 params, bn_variance 'fast', b256, two epochs
+    of two steps (the tree's one split trains and validates)."""
+    from handpose_tpu_torch import Config
+    return Config(model_name=model, input_channels=3, dataset_name="RHD",
+                  dataset_root_dir=root, batch_size=BATCH,
+                  infer_batch_size=BATCH, max_epoch=2,
+                  use_val_dataset_to_debug=True, save_log_dir=logs,
+                  cache_decoded=True, **kw)
+
+
+def resnet50_serving_phase(dev, root, raw_host):
+    """Hand3DPoseNet's serving path: the Evaluator over the split (one K1
+    launch a batch) and serve on one batch, device resident; the card
+    against the host on a small float32 batch; the layers' times."""
+    from handpose_tpu_torch.data.preprocess import (model_input,
+                                                    preprocess_batch)
+    from handpose_tpu_torch.data.rhd import RHDDataset
+    from handpose_tpu_torch.infer import (Evaluator, load_serving_model,
+                                          serve)
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch.ops import scoremap_cuda
+
+    cfg = resnet50_config(root)
+    check(cfg.crop_size == 256 and cfg.compute_dtype == "bfloat16"
+          and cfg.resnet_out_feature_dim == 1024 and cfg.resnet_stem == "k3s2",
+          "Hand3DPoseNet at full width: crop 256, 3 channels, 1024-d "
+          "features, bf16 compute, k3s2 stem")
+    raw = raw_host.to(dev)
+    ev = Evaluator(cfg, device=dev)
+    server = load_serving_model(cfg, device=dev)
+    ev.evaluate(max_batches=1)                       # warm: cuDNN, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1 = scoremap_cuda.KERNEL
+    # ---- the main path, with the launch count read around it ----
+    k1.launches = 0
+    t0 = time.perf_counter()
+    mpjpe = ev.evaluate()
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    eval_launches = k1.launches
+    xyz, uv = serve(server, raw, cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = k1.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = -(-N_SAMPLES // BATCH)
+    check(eval_launches == n_batches and launches == n_batches + 1,
+          f"Hand3DPoseNet: scoremap launched once per Evaluator batch "
+          f"({eval_launches} for {n_batches}) and once by serve")
+    check(np.isfinite(mpjpe) and mpjpe > 0,
+          f"Hand3DPoseNet whole-split MPJPE finite: {mpjpe:.4f} mm")
+    check(tuple(xyz.shape) == (BATCH, 21, 3) and tuple(uv.shape) ==
+          (BATCH, 21, 2) and bool(torch.isfinite(xyz).all()
+                                  and torch.isfinite(uv).all()),
+          "Hand3DPoseNet serve: finite (B, 21, 3) and (B, 21, 2)")
+
+    cfg32 = cfg.replace(compute_dtype="float32")
+    small = RHDDataset(root, "evaluation",
+                       cache_decoded=True).raw_batch(range(4))
+    host = serve(load_serving_model(cfg32, device="cpu"), small, cfg32,
+                 device="cpu")
+    card = serve(load_serving_model(cfg32, device=dev), small, cfg32,
+                 device=dev)
+    errs = [rel_err(a, b) for a, b in zip(host, card)]
+    check(max(errs) <= F32_RTOL,
+          f"Hand3DPoseNet card vs host path, f32, b4: xyz {errs[0]:.3g}, uv "
+          f"{errs[1]:.3g} of range <= {F32_RTOL}")
+
+    with torch.inference_mode():
+        sample = preprocess_batch(raw, **serving_kwargs(cfg))
+        inp = model_input(sample, 3)
+        x = inp.permute(0, 3, 1, 2).to(dtype=torch.bfloat16,
+                                       memory_format=torch.channels_last)
+        K, sc, rt = (sample["camera_intrinsic_matrix"],
+                     sample["keypoint_scale"], sample["keypoint_xyz_root"])
+        layers = {
+            "serve_ms": cuda_ms(lambda: serve(server, raw, cfg, dev), 5),
+            "preprocess_ms": cuda_ms(
+                lambda: preprocess_batch(raw, **serving_kwargs(cfg)), 5),
+            "forward_ms": cuda_ms(lambda: server(inp, K, sc, rt), 5),
+            "trunk_ms": cuda_ms(
+                lambda: server.resnet_extractor.trunk(x), 5),
+        }
+        del sample, inp, x
+    out = {"mpjpe_mm": mpjpe, "evaluator_img_per_s": N_SAMPLES / t_eval,
+           "serve_img_per_s_b256_device_resident":
+               BATCH / layers["serve_ms"] * 1e3,
+           "max_memory_allocated_bytes": peak, "card_vs_host_rel": errs,
+           **layers}
+    print(f"Hand3DPoseNet serving b{BATCH}: "
+          f"{out['serve_img_per_s_b256_device_resident']:.1f} img/s device "
+          f"resident (serve {layers['serve_ms']:.3f} ms = preprocess "
+          f"{layers['preprocess_ms']:.3f} + forward {layers['forward_ms']:.3f}"
+          f", trunk {layers['trunk_ms']:.3f}); Evaluator "
+          f"{out['evaluator_img_per_s']:.1f} img/s; peak {peak} B",
+          flush=True)
+    del ev, server
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def resnet50_training_phase(dev, root, raw_host, model):
+    """The Worker of a ResNet-50 model at b256, two epochs of two steps
+    with validation: launch counts (K1 a step or batch, K2 53 a step at
+    the 12 held shapes, K3 once a step, tiled), finite losses (for
+    TwoDimHandPose ``loss_uv`` in pixels and the total carrying it over
+    1e5), the Evaluator on model_best equal to the run's best, the step's
+    layer times and peak memory."""
+    from handpose_tpu_torch.infer import Evaluator
+    from handpose_tpu_torch.train import Worker
+
+    logs = tempfile.mkdtemp(dir=root)
+    cfg = resnet50_config(root, model, logs)
+    worker = Worker(cfg, run_dir=logs, device=dev)
+    step = worker.train_step
+    step_losses = []
+
+    def recording_step(state, raw, **kw):
+        state, losses = step(state, raw, **kw)
+        step_losses.append({k: float(v) for k, v in losses.items()})
+        return state, losses
+
+    worker.train_step = recording_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    best = worker.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    k2_shapes = dict(_counts()[1].by_shape)
+    steps = worker.state.step
+    check(steps == 4, f"{model} Worker took {steps} train steps over 2 "
+          "epochs")
+    launches = check_worker_launches(worker, f"{model} Worker run",
+                                     BN50_SHAPES, trunks=1)
+    losses = epoch_losses(worker)
+    check(len(losses) == 2 and all(np.isfinite(losses)) and all(
+        np.isfinite(v) for d in step_losses for v in d.values()),
+        f"{model} Worker: finite losses, epochs {losses}")
+    if model == "TwoDimHandPose":
+        ok = all(d["loss_uv"] > 1.0 and abs(d["loss"] - d["loss_uv"] / 1e5)
+                 <= 1e-6 * d["loss"] for d in step_losses)
+        check(ok, f"TwoDimHandPose: loss_uv reported in pixels^2 "
+              f"({step_losses[0]['loss_uv']:.4f}), the total carries it "
+              f"over 1e5 ({step_losses[0]['loss']:.8f})")
+    ev_mpjpe = Evaluator(cfg, weights=os.path.join(logs, "model_best"),
+                         device=dev).evaluate()
+    check(np.isfinite(best) and ev_mpjpe == best,
+          f"{model} Evaluator on model_best: {ev_mpjpe!r} == the Worker's "
+          f"best validation MPJPE {best!r}")
+    worker.train_step = step
+    split = step_split(worker, raw_host.to(dev))
+    med = float(np.median(worker.step_seconds[1:]))
+    out = {"model": model, "steps": steps, "epoch_losses": losses,
+           "step_losses": step_losses, "val_mpjpe": best,
+           "evaluator_model_best_mpjpe": ev_mpjpe, "run_s": t_run,
+           "step_s": worker.step_seconds,
+           "median_step_ms_after_first": med * 1e3,
+           "train_img_per_s_median_after_first": BATCH / med, **split,
+           "max_memory_allocated_bytes": peak,
+           "launches": dict(zip(("scoremap", "moments", "pool_bwd"),
+                                launches))}
+    print(f"{model} training b{BATCH}: {BATCH / med:.1f} img/s (median step "
+          f"{med * 1e3:.1f} ms after the first), step {split['step_ms']:.3f}"
+          f" ms = preprocess {split['preprocess_ms']:.3f} + forward "
+          f"{split['forward_ms']:.3f} + backward and Adam "
+          f"{split['backward_and_update_ms']:.3f}; validation MPJPE "
+          f"{best:.4f}; peak {peak} B", flush=True)
+    del worker
+    torch.cuda.empty_cache()
+    return out, launches, k2_shapes
+
+
+def stems_phase(dev, root, raw_host):
+    """The ResNet-50 trunk under k3s2 and k3s2_s2d with the same weights
+    agree (f32, TF32 off, 1e-5 of range, b16); each stem's conv and the
+    whole trunk timed at b256 in bf16, eval mode; Hand3DPoseNet with the
+    k7s2 stem trains one fused step through K1, K2 and K3."""
+    from handpose_tpu_torch.data.preprocess import preprocess_batch
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch.models import build_model
+    from handpose_tpu_torch.models.zoo import init_parameters
+    from handpose_tpu_torch.nn.resnet import ExtendedResNet50
+    from handpose_tpu_torch.train import (create_train_state,
+                                          make_fused_train_step)
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    cl = torch.channels_last
+    x = torch.rand((16, 3, 256, 256), generator=g, device=dev).contiguous(
+        memory_format=cl)
+    outs = {}
+    base = init_parameters(ExtendedResNet50(3), seed=5).state_dict()
+    for stem in ("k3s2", "k3s2_s2d"):
+        trunk = ExtendedResNet50(3, stem=stem).to(dev).eval()
+        trunk.load_state_dict(base)
+        with torch.inference_mode():
+            outs[stem] = trunk(x)
+        del trunk
+    err = rel_err(outs["k3s2"], outs["k3s2_s2d"])
+    check(err <= 1e-5, f"ResNet-50 trunk, k3s2_s2d == k3s2 with the same "
+          f"weights (f32, TF32 off, b16): {err:.3g} of range <= 1e-5")
+    del outs, x
+    x = torch.rand((BATCH, 3, 256, 256), generator=g, device=dev).to(
+        dtype=torch.bfloat16, memory_format=cl)
+    times = {}
+    for stem in ("k3s2", "k3s2_s2d", "k7s2"):
+        trunk = init_parameters(ExtendedResNet50(
+            3, dtype=torch.bfloat16, stem=stem), seed=5).to(dev).eval()
+        with torch.inference_mode():
+            times[stem] = {
+                "stem_conv_ms": cuda_ms(lambda: trunk.trunk.conv_init(x), 10),
+                "trunk_forward_ms": cuda_ms(lambda: trunk(x), 5)}
+        del trunk
+    print(f"stems at b{BATCH}, bf16, eval: {times}", flush=True)
+    del x
+
+    # ---- the main path of the k7s2 stem: one fused train step ----
+    cfg = resnet50_config(root, resnet_stem="k7s2")
+    model = build_model(cfg).to(dev)
+    state = create_train_state(model, cfg)
+    step = make_fused_train_step(model, cfg, preprocess_batch,
+                                 serving_kwargs(cfg))
+    raw = raw_host.to(dev)
+    reset_counts()
+    _, losses = step(state, raw)
+    torch.cuda.synchronize()
+    k1, k2, k3 = _counts()
+    launches = [k1.launches, k2.launches, k3.launches]
+    check(launches == [1, 53, 1] and dict(k2.by_shape) == {
+        (N, C): n for _, N, C, n in BN50_SHAPES},
+        f"k7s2 Hand3DPoseNet step launched K1, K2, K3 {launches} times, "
+        "K2 at the 12 held shapes")
+    losses = {k: float(v) for k, v in losses.items()}
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"k7s2 Hand3DPoseNet trained one step: losses {losses}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return {"s2d_vs_k3s2_rel": err, "b256_bf16_eval": times,
+            "k7s2_step_losses": losses}, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -1350,24 +1658,43 @@ def main():
         ih_serving["tree_write_s"] = ih_write_s
         ih_training, (k1_ih_train, k2_ih_train, k3_ih_train) = \
             interhand_training_phase(dev, ih_root)
-    moments_per_step(k2, k2_shapes, training["steps"])
+        r50_serving, k1_r50_serving = resnet50_serving_phase(
+            dev, root, raw_host)
+        r50_training, r50_launches = {}, {}
+        for model in RESNET50_MODELS:
+            r50_training[model], r50_launches[model], shapes = \
+                resnet50_training_phase(dev, root, raw_host, model)
+            if model == "Hand3DPoseNet":
+                r50_k2_shapes = shapes
+        stems, stem_launches = stems_phase(dev, root, raw_host)
+    moments_per_step(k2, k2_shapes, training["steps"], "flagship")
+    moments_per_step(k2, r50_k2_shapes,
+                     r50_training["Hand3DPoseNet"]["steps"], "resnet50")
     k1["max_abs_err"] = max(k1["max_abs_err"], ih_k1_err)
     k1["launches_by_path"] = {
         "serving": k1_serving, "training": k1_train,
         "augmented_training": k1_aug, "interhand_serving": k1_ih_serving,
-        "interhand_training": k1_ih_train}
+        "interhand_training": k1_ih_train,
+        "resnet50_serving": k1_r50_serving,
+        **{f"{m}_training": r50_launches[m][0] for m in RESNET50_MODELS},
+        "k7s2_step": stem_launches[0]}
     k1["launches"] = sum(k1["launches_by_path"].values())
-    k2["launches_by_path"] = {"training": k2_train,
-                              "augmented_training": k2_aug,
-                              "interhand_training": k2_ih_train}
+    k2["launches_by_path"] = {
+        "training": k2_train, "augmented_training": k2_aug,
+        "interhand_training": k2_ih_train,
+        **{f"{m}_training": r50_launches[m][1] for m in RESNET50_MODELS},
+        "k7s2_step": stem_launches[1]}
     k2["launches"] = sum(k2["launches_by_path"].values())
-    k3["launches_by_path"] = {"training": k3_train,
-                              "augmented_training": k3_aug,
-                              "interhand_training": k3_ih_train}
+    k3["launches_by_path"] = {
+        "training": k3_train, "augmented_training": k3_aug,
+        "interhand_training": k3_ih_train,
+        **{f"{m}_training": r50_launches[m][2] for m in RESNET50_MODELS},
+        "k7s2_step": stem_launches[2]}
     k3["launches"] = sum(k3["launches_by_path"].values())
     k3["launches_by_variant"] = training["pool_bwd_launches_by_variant"]
     for record in (decode, serving, training, augmented, preemption,
-                   ih_serving, ih_training):
+                   ih_serving, ih_training, r50_serving, stems,
+                   *r50_training.values()):
         record["card"] = card
     print(json.dumps({"decode": decode}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
@@ -1376,6 +1703,11 @@ def main():
     print(json.dumps({"preemption": preemption}), flush=True)
     print(json.dumps({"interhand_serving": ih_serving}), flush=True)
     print(json.dumps({"interhand_training": ih_training}), flush=True)
+    print(json.dumps({"resnet50_serving": r50_serving}), flush=True)
+    for model in RESNET50_MODELS:
+        print(json.dumps({"resnet50_training": r50_training[model]}),
+              flush=True)
+    print(json.dumps({"stems": stems}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

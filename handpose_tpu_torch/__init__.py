@@ -14,7 +14,10 @@ train-mode BatchNorm (its moments a CUDA kernel) and the stem max pool
 (its backward a CUDA kernel), Adam with the cosine LR, the fused train
 and eval steps with the train-time augmentations, the ``Worker`` with
 checkpoints, resume, preemption, run logging and fake data, the
-``Evaluator`` with MPJPE, PCK and AUC, and ``serve``.
+``Evaluator`` with MPJPE, PCK and AUC, and ``serve``.  The ResNet-50
+family (``TwoDimHandPose``, ``OnlyThreeDimHandPose``, ``Hand3DPoseNet``)
+with the three stems and the trainer-A losses runs through the same
+harness.
 """
 
 __version__ = "0.1.0"

@@ -44,6 +44,18 @@ LOSS_GATES = {
     "Hand3DPosePriorNetwork": dict(xyz=True, rot=True),
 }
 
+# per-model default input channels of both CLIs (reference config.py:44
+# conventions; ``inference.py:92-96``): scoremaps for the flagship, the
+# image and its scoremaps for the MANO models with a 24-channel stem, the
+# image otherwise
+_DEFAULT_INPUT_CHANNELS = {"Hand3DPosePriorNetwork": 21,
+                           "ThreeHandShapeAndPoseMANO": 24,
+                           "Resnet50MANO3DHandPose": 24}
+
+
+def default_input_channels(model_name: str) -> int:
+    return _DEFAULT_INPUT_CHANNELS.get(model_name, 3)
+
 
 @dataclass(frozen=True)
 class Config:

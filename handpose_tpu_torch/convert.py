@@ -5,6 +5,8 @@ flattened to ``/``-joined paths with numpy leaves, e.g.
 
     params/PosePrior_net/backbone/trunk/BasicBlock_0/Conv_0/kernel
     batch_stats/ViewPoint_net/backbone/trunk/bn_init/mean
+    params/resnet_extractor/trunk/BottleneckBlock_3/Conv_2/kernel
+    params/view_point_predictor/fc_vp_ux/bias
 
 which :func:`flatten_variables` makes from the nested tree and
 ``np.savez`` stores (the ``--weights`` file of the CLIs).

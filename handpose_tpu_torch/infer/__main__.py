@@ -4,6 +4,8 @@
         --ckpt logs/<model>/RHD/run_<ts>/model_best --pck
     python -m handpose_tpu_torch.infer --dataset InterHand2.6M \\
         --data_root /data/InterHand2.6M --ckpt <run>/model_best --pck
+    python -m handpose_tpu_torch.infer --model OnlyThreeDimHandPose \\
+        --data_root /data/RHD
 
 RHD reads the ``evaluation`` split, InterHand2.6M ``interhand_eval_split``
 (``val``); both decode their PNGs or JPEGs per batch, or through the
@@ -12,21 +14,32 @@ decoded cache with ``--set cache_decoded=true`` (built on first use).
 (alias ``--ckpt``) is a checkpoint directory the train CLI wrote, or an
 ``.npz`` of the JAX model's variables flattened to ``/``-joined paths
 (``convert.flatten_variables``); without it the model keeps its seeded
-init.  Counterpart of the repository's ``inference.py``.
+init.  ``--model`` names the model (default: the one a checkpoint path
+``logs/<model>/<dataset>/run_<ts>/<ckpt>`` names, else
+Hand3DPosePriorNetwork); ``--input_channels`` defaults to the model's
+convention (21 for the flagship, 3 for the ResNet-50 models).
+Counterpart of the repository's ``inference.py``.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from ..config import Config, apply_overrides
-from .evaluator import Evaluator
+from ..config import (MODEL_NAMES, Config, apply_overrides,
+                      default_input_channels)
+from ..models.zoo import _WAITING, _ZOO
+from .evaluator import Evaluator, model_name_from_path
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model", default=None, choices=MODEL_NAMES,
+                   help="default: the model a checkpoint path names, else "
+                        "Hand3DPosePriorNetwork")
+    p.add_argument("--input_channels", type=int, default=None,
+                   help="3 | 21 | 24 (default: the model's convention)")
     p.add_argument("--dataset", default="RHD",
                    choices=["RHD", "InterHand2.6M", "synthetic"])
     p.add_argument("--data_root", default="/data/RHD")
@@ -42,10 +55,22 @@ def main(argv=None):
                    dest="overrides",
                    help="override any Config field, e.g. --set sigma=10")
     args = p.parse_args(argv)
-    cfg = Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
+    model = args.model
+    if model is None and args.weights:
+        model = model_name_from_path(args.weights)
+    if model not in MODEL_NAMES:
+        # no --model and no run directory's checkpoint (e.g. an .npz)
+        model = "Hand3DPosePriorNetwork"
+    channels = args.input_channels
+    if channels is None:
+        channels = default_input_channels(model)
+    cfg = Config(model_name=model, input_channels=channels,
                  dataset_name=args.dataset, dataset_root_dir=args.data_root,
                  infer_batch_size=args.batch_size)
     cfg = apply_overrides(cfg, args.overrides)
+    if cfg.model_name not in _ZOO:
+        p.error(f"{cfg.model_name} is not ported yet; it waits in "
+                f"ROADMAP.md queue 1 ({_WAITING[cfg.model_name]})")
     ev = Evaluator(cfg, weights=args.weights, device=args.device)
     if not args.pck:
         mpjpe = ev.evaluate(max_batches=args.max_batches)

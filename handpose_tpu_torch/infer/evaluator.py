@@ -3,12 +3,15 @@
 Port of ``handpose_tpu/infer/evaluator.py`` on its fused path, over the
 RHD evaluation split or InterHand2.6M's ``cfg.interhand_eval_split``
 (JAX :97-118), and its ``evaluate_full`` (:193-239).  For
-trainer-B models (this slice: ``Hand3DPosePriorNetwork``) the metric is
-the fused eval step on the model built with ``is_inference=False``, which
-is what the JAX Worker's validation runs (``train/trainer.py:66,129``).
-The JAX ``Evaluator`` builds the ``is_inference=True`` model instead, and
-its metrics then read the ``can_xyz`` that branch does not return; the
-port does not copy that.
+trainer-B models (``Hand3DPosePriorNetwork``, ``Hand3DPoseNet``) the
+metric is the fused eval step on the model built with
+``is_inference=False``, which is what the JAX Worker's validation runs
+(``train/trainer.py:66,129``).  The JAX ``Evaluator`` builds the
+``is_inference=True`` model instead, and its metrics then read the
+``can_xyz`` that branch does not return; the port does not copy that.
+The trainer-A models have no inference flag and are evaluated as built;
+``TwoDimHandPose`` has no 3-D output, so its PCK curve is zero and its
+AUC 0, as in the JAX ``evaluate_full``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,14 @@ DATASETS = ("RHD", "InterHand2.6M", "synthetic")
 FAKE_BATCHES = 3
 # the standard RHD protocol: PCK over 20-50 mm, 31 thresholds
 PCK_THRESHOLDS = np.linspace(0.02, 0.05, 31)
+
+
+def model_name_from_path(ckpt_path: str) -> str:
+    """``logs/<model>/<dataset>/run_<ts>/<ckpt>`` -> ``<model>``
+    (``handpose_tpu/infer/evaluator.py:35-39``, reference
+    inference.py:38)."""
+    parts = os.path.normpath(ckpt_path).split(os.sep)
+    return parts[-4] if len(parts) >= 4 else parts[0]
 
 
 def load_weights(model, weights: Weights):
@@ -149,8 +160,9 @@ class Evaluator:
             m = step(raw)
             total += m["mpjpe_sum"].to(torch.float64)
             count += m["mpjpe_count"].to(torch.float64)
-            correct += m["pck_correct_sum"].to(torch.float64)
-            n += m["pck_count"].to(torch.float64)
+            if "pck_correct_sum" in m:
+                correct += m["pck_correct_sum"].to(torch.float64)
+                n += m["pck_count"].to(torch.float64)
         n = float(n)
         curve = correct.cpu().numpy() / n if n else np.zeros(ts.shape[0])
         auc = (float(np.trapezoid(curve, ts) / (ts[-1] - ts[0]))

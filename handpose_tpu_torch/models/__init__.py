@@ -1,5 +1,7 @@
 """Model zoo."""
 
-from .zoo import Hand3DPosePriorNetwork, ModelOutput, build_model
+from .zoo import (Hand3DPoseNet, Hand3DPosePriorNetwork, ModelOutput,
+                   OnlyThreeDimHandPose, TwoDimHandPose, build_model)
 
-__all__ = ["Hand3DPosePriorNetwork", "ModelOutput", "build_model"]
+__all__ = ["Hand3DPoseNet", "Hand3DPosePriorNetwork", "ModelOutput",
+           "OnlyThreeDimHandPose", "TwoDimHandPose", "build_model"]

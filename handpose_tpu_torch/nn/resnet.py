@@ -1,17 +1,19 @@
-"""ResNet-18 trunk with the reference's k3s2 stem.
+"""ResNet trunks with the reference's three stems.
 
-Port of ``handpose_tpu/nn/resnet.py:44-63,143-204,230-246``.  Submodules
-carry flax's names (``conv_init``, ``bn_init``, ``BasicBlock_i``,
-``Conv_i``, ``BatchNorm_i``, ``conv_proj``, ``norm_proj``, ``fc``) so that
-``convert.load_flax_variables`` maps a flax path to a module path
-one-to-one.
+Port of ``handpose_tpu/nn/resnet.py:44-265``: ``BasicBlock`` and
+``BottleneckBlock``, the generic ``ResNet`` (ResNet-18/34/50), the stems
+``k3s2``, ``k3s2_s2d`` and ``k7s2``, ``ResNetFeatureExtractor``,
+``ExtendedResNet18`` and ``ExtendedResNet50``.  Submodules carry flax's
+names (``conv_init``, ``bn_init``, ``BasicBlock_i``/``BottleneckBlock_i``,
+``Conv_i``, ``BatchNorm_i``, ``conv_proj``, ``norm_proj``, ``fc``,
+``fc_proj``) so that ``convert.load_flax_variables`` maps a flax path to
+a module path one-to-one.
 
 Layout: NCHW tensors, in ``channels_last`` memory where the caller
-provides it (the Hopper-friendly layout for cuDNN convolutions).  The
-``k3s2_s2d`` and ``k7s2`` stems, ``BottleneckBlock`` and ResNet-50 wait
-for later slices.  ``bn_variance`` picks the train-mode BatchNorm
-variance (``nn/norm.py``); ``.train()``/``.eval()`` picks the batch or
-the running statistics, as the JAX trunks' ``train`` argument does.
+provides it (the Hopper-friendly layout for cuDNN convolutions).
+``bn_variance`` picks the train-mode BatchNorm variance
+(``nn/norm.py``); ``.train()``/``.eval()`` picks the batch or the running
+statistics, as the JAX trunks' ``train`` argument does.
 """
 
 from __future__ import annotations
@@ -26,8 +28,12 @@ from ..ops.pooling import stem_max_pool
 from .layers import Conv, Dense
 from .norm import make_norm
 
+STEMS = ("k3s2", "k3s2_s2d", "k7s2")
+
 
 class BasicBlock(nn.Module):
+    expansion = 1
+
     def __init__(self, in_channels: int, filters: int, stride: int,
                  dtype: torch.dtype, norm):
         """``norm(num_features)`` builds each BatchNorm
@@ -50,6 +56,51 @@ class BasicBlock(nn.Module):
         return F.relu(residual + y)
 
 
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 with the stride -> 1x1 to ``4 * filters``, each with a
+    BatchNorm (``handpose_tpu/nn/resnet.py:66-88``)."""
+
+    expansion = 4
+
+    def __init__(self, in_channels: int, filters: int, stride: int,
+                 dtype: torch.dtype, norm):
+        super().__init__()
+        out = filters * self.expansion
+        self.Conv_0 = Conv(in_channels, filters, 1, 1, 0, dtype)
+        self.BatchNorm_0 = norm(filters)
+        self.Conv_1 = Conv(filters, filters, 3, stride, 1, dtype)
+        self.BatchNorm_1 = norm(filters)
+        self.Conv_2 = Conv(filters, out, 1, 1, 0, dtype)
+        self.BatchNorm_2 = norm(out)
+        # flax adds the projection when the residual's shape differs: the
+        # first block of stage 1 too (64 -> 256 channels at stride 1)
+        self.project = stride != 1 or in_channels != out
+        if self.project:
+            self.conv_proj = Conv(in_channels, out, 1, stride, 0, dtype)
+            self.norm_proj = norm(out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = F.relu(self.BatchNorm_1(self.Conv_1(y)))
+        y = self.BatchNorm_2(self.Conv_2(y))
+        residual = self.norm_proj(self.conv_proj(x)) if self.project else x
+        return F.relu(residual + y)
+
+
+def make_stem(stem: str, in_channels: int, filters: int,
+              dtype: torch.dtype) -> nn.Module:
+    """The ``conv_init`` of ``stem`` (``handpose_tpu/nn/resnet.py:
+    177-187``)."""
+    if stem in ("k3s2", "k3s2_s2d"):
+        # One function and one (F, C, 3, 3) parameter: the JAX package's
+        # s2d stem re-lays the same k3 s2 p1 conv out for the TPU's
+        # matrix unit, which cuDNN's strided conv does not need.
+        return Conv(in_channels, filters, 3, 2, 1, dtype)
+    if stem == "k7s2":
+        return Conv(in_channels, filters, 7, 2, 3, dtype)
+    raise ValueError(f"resnet_stem {stem!r} not in {STEMS}")
+
+
 class ResNet(nn.Module):
     """ResNet trunk + ``num_classes`` fc (torchvision shape contract).
 
@@ -58,23 +109,25 @@ class ResNet(nn.Module):
     """
 
     def __init__(self, in_channels: int, stage_sizes: Sequence[int],
-                 num_classes: int = 1000, num_filters: int = 64,
+                 block_cls=BasicBlock, num_classes: int = 1000,
+                 num_filters: int = 64, stem: str = "k3s2",
                  dtype: torch.dtype = torch.float32,
                  bn_variance: str = "fast"):
         super().__init__()
         norm = make_norm(bn_variance, dtype)
-        self.conv_init = Conv(in_channels, num_filters, 3, 2, 1, dtype)
+        self.conv_init = make_stem(stem, in_channels, num_filters, dtype)
         self.bn_init = norm(num_filters)
         self.blocks = []
         cin = num_filters
         for i, block_count in enumerate(stage_sizes):
             for j in range(block_count):
                 stride = 2 if i > 0 and j == 0 else 1
-                filters = num_filters * 2 ** i
-                block = BasicBlock(cin, filters, stride, dtype, norm)
-                self.add_module(f"BasicBlock_{len(self.blocks)}", block)
+                block = block_cls(cin, num_filters * 2 ** i, stride, dtype,
+                                  norm)
+                self.add_module(f"{block_cls.__name__}_{len(self.blocks)}",
+                                block)
                 self.blocks.append(block)
-                cin = filters
+                cin = num_filters * 2 ** i * block_cls.expansion
         self.fc = Dense(cin, num_classes, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -88,7 +141,36 @@ class ResNet(nn.Module):
 
 
 def ResNet18(in_channels: int, **kw) -> ResNet:
-    return ResNet(in_channels, stage_sizes=[2, 2, 2, 2], **kw)
+    return ResNet(in_channels, stage_sizes=[2, 2, 2, 2],
+                  block_cls=BasicBlock, **kw)
+
+
+def ResNet34(in_channels: int, **kw) -> ResNet:
+    return ResNet(in_channels, stage_sizes=[3, 4, 6, 3],
+                  block_cls=BasicBlock, **kw)
+
+
+def ResNet50(in_channels: int, **kw) -> ResNet:
+    return ResNet(in_channels, stage_sizes=[3, 4, 6, 3],
+                  block_cls=BottleneckBlock, **kw)
+
+
+class ResNetFeatureExtractor(nn.Module):
+    """ResNet-50 trunk (modified conv1) + fc projection to ``feat_dim``
+    (reference resNetFeatureExtractor.py:10-26).  The trunk's fc runs in
+    the compute dtype; ``fc_proj`` is a flax ``nn.Dense`` without a
+    ``dtype``, so it runs in float32 on the trunk's float32 output."""
+
+    def __init__(self, in_channels: int, feat_dim: int,
+                 dtype: torch.dtype = torch.float32, stem: str = "k3s2",
+                 bn_variance: str = "fast"):
+        super().__init__()
+        self.trunk = ResNet50(in_channels, dtype=dtype, stem=stem,
+                              bn_variance=bn_variance)
+        self.fc_proj = Dense(1000, feat_dim, torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc_proj(self.trunk(x))
 
 
 class ExtendedResNet18(nn.Module):
@@ -96,9 +178,23 @@ class ExtendedResNet18(nn.Module):
     PoseViewPointNetwork.py:18-33)."""
 
     def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32,
-                 bn_variance: str = "fast"):
+                 stem: str = "k3s2", bn_variance: str = "fast"):
         super().__init__()
-        self.trunk = ResNet18(in_channels, dtype=dtype,
+        self.trunk = ResNet18(in_channels, dtype=dtype, stem=stem,
+                              bn_variance=bn_variance)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.trunk(x)
+
+
+class ExtendedResNet50(nn.Module):
+    """ResNet-50 trunk with modified conv1, 1000-d output (reference
+    resnet50MANO.py:15-24)."""
+
+    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32,
+                 stem: str = "k3s2", bn_variance: str = "fast"):
+        super().__init__()
+        self.trunk = ResNet50(in_channels, dtype=dtype, stem=stem,
                               bn_variance=bn_variance)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

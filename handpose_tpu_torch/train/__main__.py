@@ -1,4 +1,4 @@
-"""Train Hand3DPosePriorNetwork with the port.
+"""Train a model of the port's zoo (default Hand3DPosePriorNetwork).
 
     python -m handpose_tpu_torch.train --data_root /data/RHD \\
         --batch_size 256 --max_epoch 60 --device cuda
@@ -6,6 +6,8 @@
         --data_root /data/InterHand2.6M --batch_size 256 \\
         --set cache_decoded=true
     python -m handpose_tpu_torch.train --fake_data --fast_debug
+    python -m handpose_tpu_torch.train --model OnlyThreeDimHandPose \\
+        --data_root /data/RHD --batch_size 256
     python -m handpose_tpu_torch.train --from_run <run_dir> \\
         --resume <run_dir>/checkpoint
 
@@ -28,13 +30,10 @@ from __future__ import annotations
 import argparse
 import os
 
-from ..config import MODEL_NAMES, Config, apply_overrides
+from ..config import (MODEL_NAMES, Config, apply_overrides,
+                      default_input_channels)
 from ..models.zoo import _WAITING, _ZOO
 from .trainer import Worker
-
-# per-model default input channels (reference config.py:44 conventions)
-_CHANNELS = {"Hand3DPosePriorNetwork": 21, "ThreeHandShapeAndPoseMANO": 24,
-             "Resnet50MANO3DHandPose": 24}
 
 
 def _from_run(args) -> Config:
@@ -67,7 +66,7 @@ def _new_config(args) -> Config:
         dataset_root_dir=given(args.data_root, "/data/RHD"),
         batch_size=given(args.batch_size, 200),
         input_channels=given(args.input_channels,
-                             _CHANNELS.get(args.model, 3)),
+                             default_input_channels(args.model)),
         max_epoch=given(args.max_epoch, 60), lr=args.lr,
         use_fake_data=args.fake_data,
         use_val_dataset_to_debug=args.use_val_to_debug,

@@ -1,7 +1,7 @@
 """Train and eval steps: raw batch -> preprocessing -> forward -> loss.
 
 Port of ``handpose_tpu/train/steps.py``: ``_forward`` (:44-64),
-``compute_losses`` for trainer-B models (:67-88), ``_accum_grads``
+``compute_losses`` with the per-model loss gates (:67-115), ``_accum_grads``
 (:132-174), ``make_train_step`` (:177-199), ``_eval_metrics``
 (:202-223), ``_accum_eval`` with its gcd rule (:226-259),
 ``make_eval_step`` (:262-274), and the fused steps with the train-time
@@ -26,19 +26,12 @@ import torch
 from ..config import Config
 from ..data.preprocess import (AugmentDraws, RawBatch, model_input,
                                preprocess_fn_for)
-from ..losses import masked_l2_loss, rot_mat_mse
+from ..losses import LossCalculation, masked_l2_loss, rot_mat_mse
 from ..metrics import masked_sum_count, mpjpe, pck_sum_count
 from ..ops.projection import rel_normed_to_absolute
 from .state import TrainState
 
 _TRAINER_B = ("Hand3DPoseNet", "Hand3DPosePriorNetwork")
-
-
-def _check_trainer_b(cfg: Config):
-    if cfg.model_name not in _TRAINER_B:
-        raise NotImplementedError(
-            f"losses and metrics of {cfg.model_name} wait for a later slice "
-            "(ROADMAP.md, queue 1); this slice ports the trainer-B models")
 
 
 def _check_remat(cfg: Config):
@@ -64,14 +57,50 @@ def forward(model, batch: dict, cfg: Config):
 
 
 def compute_losses(out, batch: dict, cfg: Config) -> Dict[str, torch.Tensor]:
-    """Trainer-B loss terms + total: canonical-coords L2 and rotation MSE
-    (reference trainval_hand3DPose.py:284-288)."""
-    _check_trainer_b(cfg)
-    loss_xyz = masked_l2_loss(out.can_xyz, batch["kp_coord_xyz21_rel_can"],
-                              batch["keypoint_vis21"])
-    loss_rot = rot_mat_mse(out.rot_mat, batch["rot_mat"])
-    return {"loss_xyz": loss_xyz, "loss_rot": loss_rot,
-            "loss": loss_xyz + loss_rot}
+    """Gated loss terms and their total (reference trainval.py:330-360).
+
+    Trainer-B models: canonical-coords L2 and rotation MSE (reference
+    trainval_hand3DPose.py:284-288).  The others: one
+    :class:`LossCalculation` built per ``cfg.loss_gates``; the total adds
+    ``loss_uv / 1e5`` (trainval.py:346) while ``loss_uv`` is reported
+    unscaled, and the model's ``diffusion_loss`` only under its gate."""
+    vis = batch["keypoint_vis21"]
+    if cfg.model_name in _TRAINER_B:
+        loss_xyz = masked_l2_loss(out.can_xyz,
+                                  batch["kp_coord_xyz21_rel_can"], vis)
+        loss_rot = rot_mat_mse(out.rot_mat, batch["rot_mat"])
+        return {"loss_xyz": loss_xyz, "loss_rot": loss_rot,
+                "loss": loss_xyz + loss_rot}
+    gates = cfg.loss_gates
+    criterion = LossCalculation(
+        loss_type="L2",
+        comp_xyz_loss=gates["xyz"] and out.xyz is not None,
+        comp_uv_loss=gates["uv"] and out.uv is not None,
+        comp_hand_mask_loss=gates["hand_mask"] and out.uv is not None,
+        comp_regularization_loss=(gates["regularization"]
+                                  and out.theta is not None))
+    lt = criterion(out.xyz, batch["keypoint_xyz21"], out.uv,
+                   batch["keypoint_uv21"], vis,
+                   hand_mask=batch.get("right_hand_mask"),
+                   theta=out.theta, beta=out.beta)
+    terms = {}
+    total = torch.zeros((), device=vis.device)
+    if lt.xyz is not None:
+        terms["loss_xyz"] = lt.xyz
+        total = total + lt.xyz
+    if lt.uv is not None:
+        terms["loss_uv"] = lt.uv
+        total = total + lt.uv / 1e5
+    if gates["diffusion"] and out.diffusion_loss is not None:
+        terms["loss_diffusion"] = out.diffusion_loss
+        total = total + out.diffusion_loss
+    if lt.hand_mask is not None:
+        terms["loss_hand_mask"] = lt.hand_mask
+        total = total + lt.hand_mask
+    if lt.regularization is not None:
+        terms["loss_regularization"] = lt.regularization
+        total = total + lt.regularization
+    return {**terms, "loss": total}
 
 
 def _batch_size(data) -> int:
@@ -140,7 +169,6 @@ def _grad_one_on(model, cfg: Config) -> Callable[[dict], dict]:
 def make_train_step(model, cfg: Config):
     """``train_step(state, batch)`` on a preprocessed sample dict ->
     ``(state, losses)``."""
-    _check_trainer_b(cfg)
     _check_remat(cfg)
     grad_one = _grad_one_on(model, cfg)
 
@@ -159,7 +187,6 @@ def _make_fused_grad_one(model, cfg: Config, preprocess_fn,
     with the augmentations of ``aug_flags`` that are on (no gradient:
     labels and network input, the JAX step's ``stop_gradient``), then
     forward and backward."""
-    _check_trainer_b(cfg)
     _check_remat(cfg)
     grad_one = _grad_one_on(model, cfg)
     flags = {k: True for k, v in (aug_flags or {}).items() if v}
@@ -197,14 +224,18 @@ def make_fused_train_step(model, cfg: Config, preprocess_fn,
 
 def _absolute_xyz(out, batch: dict):
     """(predicted, ground-truth) absolute 3-D keypoints in metres, the
-    pair the PCK curve reads.  A model with an ``xyz`` output is held to
-    ``keypoint_xyz21``, as in the JAX step.  The trainer-B models output
-    root-relative normalised coordinates in training mode; they are made
-    absolute as the serving branch makes them (``rel_normed_to_absolute``
-    with the sample's scale and root), against the ground truth's own
-    normalised coordinates, which share the model's joint order."""
+    pair the PCK curve reads, or None for a model without 3-D output
+    (``TwoDimHandPose``: no PCK, as in the JAX step).  A model with an
+    ``xyz`` output is held to ``keypoint_xyz21``, as in the JAX step.
+    The trainer-B models output root-relative normalised coordinates in
+    training mode; they are made absolute as the serving branch makes
+    them (``rel_normed_to_absolute`` with the sample's scale and root),
+    against the ground truth's own normalised coordinates, which share
+    the model's joint order."""
     if out.xyz is not None:
         return out.xyz, batch["keypoint_xyz21"]
+    if out.coord_xyz_rel_normed is None:
+        return None
     scale, root = batch["keypoint_scale"], batch["keypoint_xyz_root"]
     return (rel_normed_to_absolute(out.coord_xyz_rel_normed, scale, root),
             rel_normed_to_absolute(batch["keypoint_xyz21_rel_normed"],
@@ -213,16 +244,26 @@ def _absolute_xyz(out, batch: dict):
 
 def _eval_metrics(out, batch: dict, cfg: Config,
                   pck_thresholds=None) -> Dict[str, torch.Tensor]:
+    """Losses, MPJPE and its sums, and the PCK sums where there are
+    absolute 3-D keypoints.  The MPJPE is taken on the canonical coords
+    for trainer-B models, on ``uv`` for ``TwoDimHandPose`` and on ``xyz``
+    for the other trainer-A models (``handpose_tpu/train/steps.py:
+    202-223``)."""
     losses = compute_losses(out, batch, cfg)
-    gt = batch["kp_coord_xyz21_rel_can"]
     vis = batch["keypoint_vis21"]
-    s, n = masked_sum_count(out.can_xyz, gt, vis)
-    metrics = {**losses, "mpjpe": mpjpe(out.can_xyz, gt, vis),
+    if cfg.model_name in _TRAINER_B:
+        pred, gt = out.can_xyz, batch["kp_coord_xyz21_rel_can"]
+    elif cfg.model_name == "TwoDimHandPose":
+        pred, gt = out.uv, batch["keypoint_uv21"]
+    else:
+        pred, gt = out.xyz, batch["keypoint_xyz21"]
+    s, n = masked_sum_count(pred, gt, vis)
+    metrics = {**losses, "mpjpe": mpjpe(pred, gt, vis),
                "mpjpe_sum": s, "mpjpe_count": n}
-    if pck_thresholds is not None:
+    pair = _absolute_xyz(out, batch) if pck_thresholds is not None else None
+    if pair is not None:
         # the same joints and visibility as the MPJPE, in metres
-        cs, cn = pck_sum_count(*_absolute_xyz(out, batch), vis,
-                               pck_thresholds)
+        cs, cn = pck_sum_count(*pair, vis, pck_thresholds)
         metrics["pck_correct_sum"] = cs
         metrics["pck_count"] = cn
     return metrics
@@ -247,7 +288,6 @@ def make_eval_step(model, cfg: Config,
                    pck_thresholds=None) -> Callable[[dict], dict]:
     """``eval_step(batch)`` on a preprocessed sample dict -> the metrics
     of :func:`make_fused_eval_step` (the fake-data path's validation)."""
-    _check_trainer_b(cfg)
 
     def metrics_one(batch: dict) -> dict:
         return _eval_metrics(forward(model, batch, cfg), batch, cfg,
@@ -264,11 +304,10 @@ def make_fused_eval_step(model, cfg: Config, preprocess_fn,
                          pp_kwargs: dict, pck_thresholds=None
                          ) -> Callable[[RawBatch], dict]:
     """``eval_step(raw)`` -> metrics dict of tensors on the batch's
-    device: loss_xyz, loss_rot, loss, mpjpe, mpjpe_sum, mpjpe_count (0-d)
-    and, with ``pck_thresholds`` (T,) in metres, pck_correct_sum (T,)
-    and pck_count, from the same forward.  The model runs in eval mode
-    (running statistics)."""
-    _check_trainer_b(cfg)
+    device: the loss terms of :func:`compute_losses`, mpjpe, mpjpe_sum,
+    mpjpe_count (0-d) and, with ``pck_thresholds`` (T,) in metres and a
+    model with 3-D output, pck_correct_sum (T,) and pck_count, from the
+    same forward.  The model runs in eval mode (running statistics)."""
 
     def metrics_one(raw_i: RawBatch) -> dict:
         fn = preprocess_fn or preprocess_fn_for(raw_i)

@@ -63,27 +63,37 @@ def unflatten(flat: dict) -> dict:
     return tree
 
 
-def flax_weights(crop: int, channels: int = 21, seed: int = 0) -> dict:
-    """Flattened variables of the JAX Hand3DPosePriorNetwork: the variable
-    tree of its ``init`` (traced with ``jax.eval_shape``, not compiled),
-    filled from ``seed`` -- He/LeCun-scaled kernels, and BatchNorm
-    scale/bias/mean/var away from their init values so that every leaf's
-    transfer is exercised."""
+def flax_weights(crop: int, channels: int = 21, seed: int = 0,
+                 model: str = MODEL, **cfg_kw) -> dict:
+    """Flattened variables of the JAX ``model`` (default
+    Hand3DPosePriorNetwork; ``cfg_kw`` are further Config fields): the
+    variable tree of its ``init`` (traced with ``jax.eval_shape``, not
+    compiled), filled from ``seed`` -- He/LeCun-scaled kernels, and
+    BatchNorm scale/bias/mean/var away from their init values so that
+    every leaf's transfer is exercised."""
     import jax
     import jax.numpy as jnp
     from handpose_tpu.config import Config
     from handpose_tpu.models import build_model
-    from handpose_tpu_torch.convert import flatten_variables
 
-    cfg = Config(model_name=MODEL, input_channels=channels,
-                 input_img_shape=(crop, crop), compute_dtype="float32")
-    model = build_model(cfg)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(seed),
+    cfg = Config(model_name=model, input_channels=channels,
+                 input_img_shape=(crop, crop), compute_dtype="float32",
+                 **cfg_kw)
+    shapes = jax.eval_shape(build_model(cfg).init, jax.random.PRNGKey(seed),
                             jnp.zeros((1, crop, crop, channels)),
                             jnp.tile(jnp.eye(3), (1, 1, 1)),
                             jnp.ones((1, 1)), jnp.zeros((1, 3)))
-    flat = flatten_variables(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype),
-                                          dict(shapes)))
+    return seeded_variables(shapes, seed)
+
+
+def seeded_variables(shapes, seed: int) -> dict:
+    """A flax variable tree of ``jax.ShapeDtypeStruct`` leaves, flattened
+    and filled from ``seed``: He-scaled conv and LeCun-scaled dense
+    kernels, small biases and means, scales and variances in [0.5, 1.5]."""
+    import jax
+    from handpose_tpu_torch.convert import flatten_variables
+    flat = flatten_variables(jax.tree.map(
+        lambda s: np.zeros(s.shape, s.dtype), dict(shapes)))
     rng = np.random.default_rng(seed)
     for k, v in sorted(flat.items()):
         leaf = k.rsplit("/", 1)[1]
@@ -108,13 +118,13 @@ def max_rel_err(ref, out) -> float:
 
 
 def train_cfgs(crop: int, **kw):
-    """(JAX Config, port Config) of the flagship for a train-step test:
-    21 scoremap channels, ``crop``, and ``kw`` (compute_dtype, grad_accum,
-    lr, max_epoch, ...) on both."""
+    """(JAX Config, port Config) for a train-step test: the flagship with
+    21 scoremap channels unless ``kw`` names others, ``crop``, and ``kw``
+    (compute_dtype, grad_accum, lr, max_epoch, ...) on both."""
     from handpose_tpu.config import Config as JConfig
     from handpose_tpu_torch.config import Config
-    args = dict(model_name=MODEL, input_channels=21,
-                input_img_shape=(crop, crop), **kw)
+    args = dict(dict(model_name=MODEL, input_channels=21), **kw,
+                input_img_shape=(crop, crop))
     return JConfig(**args), Config(**args)
 
 

@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card, held to their plain versions.
 
-K1 (scoremap), K2 (BatchNorm moments) and K3 (stem max-pool backward),
-the RHD and InterHand2.6M preprocessing on the card against the host,
-and the train step routed through the kernels against the same step with
-the plain versions substituted.
+K1 (scoremap), K2 (BatchNorm moments, up to the ResNet-50 trunk's
+C = 2048 in both dtypes) and K3 (stem max-pool backward), the RHD and
+InterHand2.6M preprocessing on the card against the host, the train
+steps of the flagship and of a ResNet-50 model routed through the
+kernels against the same step with the plain versions substituted, and
+the space-to-depth stem against the k3s2 stem.
 
 Marked ``gpu``; each test skips when no CUDA device is present.  This
 file imports no JAX, so it also runs where JAX is not installed, without
@@ -176,7 +178,8 @@ def _moment_inputs(N, C, dtype, dev, seed):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(4100, 64), (1025, 512), (16384, 512),
-                                   (17, 64), (1, 64), (333, 72), (50, 5)])
+                                   (17, 64), (1, 64), (333, 72), (50, 5),
+                                   (16384, 2048), (65536, 1024)])
 def test_moments_kernel_matches_plain(cuda, shape, dtype):
     """Each sum to 1e-5 of the channel's sum of |x - shift| (the scale of
     a float32 sum's rounding), bit-identical over two runs."""
@@ -314,3 +317,110 @@ def test_train_step_kernels_against_plain(cuda):
             mk.parameters(), mp.parameters())])
     assert float(diffs.max()) <= 2 * lr * 1.001
     assert float((diffs > 1e-3 * lr).float().mean()) <= 0.01
+
+
+def _step_routes(cfg, raw, routes):
+    """One fused train step of ``cfg``'s model from one seeded state per
+    route ('kernel', 'plain', 'plain, rows reversed': the plain versions
+    with the BN moments' rows summed in reverse order): (losses, the
+    gradient as one vector, the kernels' launches) each."""
+    import copy
+    from unittest import mock
+    from handpose_tpu_torch.data import preprocess as pp_mod
+    from handpose_tpu_torch.models import build_model
+    from handpose_tpu_torch.train import (create_train_state,
+                                          make_fused_train_step)
+    pp = dict(crop_size=cfg.crop_size, sigma=cfg.sigma,
+              switch_joint_order=True)
+    base = build_model(cfg).to(raw.image.device)
+    kernels = (scoremap_cuda.KERNEL, moments_cuda.KERNEL,
+               pool_bwd_cuda.KERNEL)
+    sums = {"kernel": moments._moments, "plain": moments.shifted_moments,
+            "plain, rows reversed": lambda x, sh: moments.shifted_moments(
+                x.flip(0), sh)}
+    runs = []
+    for route in routes:
+        plain = route != "kernel"
+        model = copy.deepcopy(base)
+        state = create_train_state(model, cfg)
+        step = make_fused_train_step(model, cfg, pp_mod.preprocess_batch, pp)
+        counts = [k.launches for k in kernels]
+        with mock.patch.object(pp_mod, "render_gaussian_maps_cuda",
+                               heatmap.render_gaussian_maps
+                               if plain else
+                               scoremap_cuda.render_gaussian_maps_cuda), \
+                mock.patch.object(moments, "_moments", sums[route]), \
+                mock.patch.object(pooling, "_pool_bwd",
+                                  pooling.max_pool_3x3s2p1_bwd
+                                  if plain else pooling._pool_bwd):
+            _, losses = step(state, raw)
+        torch.cuda.synchronize()
+        grad = torch.cat([state.optimizer.state[p]["exp_avg"].flatten()
+                          for p in model.parameters()]) / 0.1
+        runs.append(({k: float(v) for k, v in losses.items()}, grad,
+                     [k.launches - c for k, c in zip(kernels, counts)]))
+    return runs
+
+
+def test_resnet50_train_step_kernels_against_plain(cuda):
+    """One fused train step of OnlyThreeDimHandPose (ResNet-50 at full
+    depth and width, crop 64, B 4, float32, TF32 off) through K1, K2 and
+    K3, against the same step from the same state with the plain versions
+    substituted.  The float32 gradient of 16 Bottleneck blocks of
+    train-mode BatchNorm is ill-conditioned (on the host, JAX's own
+    gradient moves ~7e-2 of its largest element when the batch is
+    reversed), so the yardstick is the plain step with the moment rows
+    summed in reverse order: kernels vs plain within twice that drift
+    (+ 1e-5 for the losses, + 1e-4 for the gradient's norm).  One launch
+    of K1 and K3 and 53 of K2."""
+    import tempfile
+    from handpose_tpu_torch.data.rhd import RHDDataset, write_synthetic_rhd
+    cfg = Config(model_name="OnlyThreeDimHandPose", input_channels=3,
+                 input_img_shape=(64, 64), compute_dtype="float32")
+    with tempfile.TemporaryDirectory() as root:
+        write_synthetic_rhd(root, "evaluation", n=4, seed=1)
+        raw = RHDDataset(root, "evaluation",
+                         cache_decoded=True).raw_batch(range(4)).to(cuda)
+    (lk, gk, nk), (lp, gp, np_), (lq, gq, _) = _step_routes(
+        cfg, raw, ("kernel", "plain", "plain, rows reversed"))
+    assert nk == [1, 53, 1] and np_ == [0, 0, 0]
+    for k in lk:
+        drift = abs(lq[k] - lp[k]) / abs(lp[k])
+        np.testing.assert_allclose(lk[k], lp[k], rtol=1e-5 + 2 * drift)
+    err = float((gk - gp).norm() / gp.norm())
+    drift = float((gq - gp).norm() / gp.norm())
+    assert err <= 2 * drift + 1e-4, (err, drift)
+
+
+def test_s2d_stem_equals_k3s2_stem_on_the_card(cuda):
+    """The ResNet-50 trunk with the same weights under both stems,
+    float32, TF32 off, deterministic cuDNN, b4 at crop 64: eval and
+    train outputs to 1e-5 of range.  ``k3s2_s2d`` builds the same conv
+    as ``k3s2`` (the s2d re-layout is the TPU's), so no float32 sum
+    order separates them, not even in the ill-conditioned train mode."""
+    from handpose_tpu_torch.models.zoo import init_parameters
+    from handpose_tpu_torch.nn.resnet import ExtendedResNet50
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.rand((4, 3, 64, 64), generator=g, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    weights = init_parameters(ExtendedResNet50(3), seed=4).state_dict()
+    trunks = {}
+    for stem in ("k3s2", "k3s2_s2d"):
+        trunks[stem] = ExtendedResNet50(3, stem=stem).to(cuda)
+        trunks[stem].load_state_dict(weights)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / a.abs().max())
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        with torch.no_grad():
+            ev = [trunks[s].eval()(x) for s in ("k3s2", "k3s2_s2d")]
+            tr = [trunks[s].train()(x) for s in ("k3s2", "k3s2_s2d")]
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    assert rel(*ev) <= 1e-5, rel(*ev)
+    assert rel(*tr) <= 1e-5, rel(*tr)

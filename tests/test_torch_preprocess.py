@@ -118,11 +118,18 @@ def test_preprocess_keeps_joint_order_when_asked(fixtures):
     _compare(ref, preprocess_batch(torch_raw(raw), switch_joint_order=False))
 
 
-@pytest.mark.parametrize("channels", [3, 21, 24])
-def test_model_input_layout(channels):
+@pytest.fixture(scope="module")
+def crop32():
+    """A seeded raw batch and its JAX preprocessing at crop 32, compiled
+    once for the three layouts."""
     raw = seeded_raw(2, 80, seed=2)
-    ref = jmodel_input(jax.jit(lambda r: jpreprocess(r, crop_size=32))(
-        jax_raw(raw)), channels)
+    return raw, jax.jit(lambda r: jpreprocess(r, crop_size=32))(jax_raw(raw))
+
+
+@pytest.mark.parametrize("channels", [3, 21, 24])
+def test_model_input_layout(crop32, channels):
+    raw, sample = crop32
+    ref = jmodel_input(sample, channels)
     out = model_input(preprocess_batch(torch_raw(raw), crop_size=32),
                       channels)
     assert tuple(out.shape) == (2, 32, 32, channels)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving step goes, on one card.
 
-    python tools/torch_serve_profile.py [--batch 256] [--iters 5]
+    python tools/torch_serve_profile.py [--model M] [--batch 256] [--iters 5]
 
-Runs ``handpose_tpu_torch.infer.serve`` (Hand3DPosePriorNetwork, full
+Runs ``handpose_tpu_torch.infer.serve`` (``--model``, default
+Hand3DPosePriorNetwork, with the model's default input channels; full
 width, bf16, seeded weights) on a device-resident synthetic RHD batch
 under ``torch.profiler`` and prints the card's name and power limit, the
 device kernel time grouped by kind (convolution, elementwise, ...), the
@@ -44,6 +45,7 @@ def kind_of(name: str) -> str:
 
 def main():
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--model", default="Hand3DPosePriorNetwork")
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--iters", type=int, default=5)
     args = p.parse_args()
@@ -52,6 +54,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     from handpose_tpu_torch import Config
+    from handpose_tpu_torch.config import default_input_channels
     from handpose_tpu_torch.data.rhd import RHDDataset, write_synthetic_rhd
     from handpose_tpu_torch.infer import load_serving_model, serve
 
@@ -59,7 +62,8 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    cfg = Config(model_name="Hand3DPosePriorNetwork", input_channels=21)
+    cfg = Config(model_name=args.model,
+                 input_channels=default_input_channels(args.model))
     with tempfile.TemporaryDirectory() as root:
         write_synthetic_rhd(root, "evaluation", n=args.batch, seed=0)
         raw = RHDDataset(root, "evaluation", cache_decoded=True).raw_batch(
@@ -92,7 +96,8 @@ def main():
     step_ms = wall_ms / args.iters
     busy_share = busy_ms / step_ms
     print(f"card: {card}")
-    print(f"serve b{args.batch}: {step_ms:.3f} ms wall per step, "
+    print(f"{args.model} serve b{args.batch}: {step_ms:.3f} ms wall per "
+          "step, "
           f"{busy_ms:.3f} ms device kernel time")
     if busy_share > 1:
         print(f"note: kernel time exceeds wall time ({busy_share:.3f}): "
@@ -104,8 +109,8 @@ def main():
     for ms, n, name in kernels[:15]:
         print(f"  {ms:8.3f} {n:5d}  {name[:100]}")
     print(json.dumps({
-        "card": card, "batch": args.batch, "step_ms": step_ms,
-        "device_kernel_ms": busy_ms,
+        "card": card, "model": args.model, "batch": args.batch,
+        "step_ms": step_ms, "device_kernel_ms": busy_ms,
         "device_busy_share": busy_share,
         "by_kind_ms": dict(by_kind)}))
 

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's train step goes, on one card.
 
-    python tools/torch_train_profile.py [--batch 256] [--iters 3]
+    python tools/torch_train_profile.py [--model M] [--batch 256] [--iters 3]
 
-Runs the fused train step of ``handpose_tpu_torch`` (Hand3DPosePriorNetwork,
-full width, bf16 compute, bn_variance 'fast', Adam with the cosine LR,
-seeded weights) on a device-resident synthetic RHD batch under
+Runs the fused train step of ``handpose_tpu_torch`` (``--model``, default
+Hand3DPosePriorNetwork, with the model's default input channels; full
+width, bf16 compute, bn_variance 'fast', Adam with the cosine LR, seeded
+weights) on a device-resident synthetic RHD batch under
 ``torch.profiler`` and prints the card's name and power limit, the device
 kernel time per step grouped by kind (convolution, BN moments K2, pool
 backward K3, elementwise, ...), the top kernels by device time, and the
@@ -50,6 +51,7 @@ def kind_of(name: str) -> str:
 
 def main():
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--model", default="Hand3DPosePriorNetwork")
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--iters", type=int, default=3)
     args = p.parse_args()
@@ -58,6 +60,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     from handpose_tpu_torch import Config
+    from handpose_tpu_torch.config import default_input_channels
     from handpose_tpu_torch.data.preprocess import preprocess_batch
     from handpose_tpu_torch.data.rhd import RHDDataset, write_synthetic_rhd
     from handpose_tpu_torch.infer.evaluator import serving_kwargs
@@ -69,7 +72,8 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    cfg = Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
+    cfg = Config(model_name=args.model,
+                 input_channels=default_input_channels(args.model),
                  batch_size=args.batch)
     with tempfile.TemporaryDirectory() as root:
         write_synthetic_rhd(root, "evaluation", n=args.batch, seed=0)
@@ -106,7 +110,8 @@ def main():
     step_ms = wall_ms / args.iters
     busy_share = busy_ms / step_ms
     print(f"card: {card}")
-    print(f"train step b{args.batch}: {step_ms:.3f} ms wall per step, "
+    print(f"{args.model} train step b{args.batch}: {step_ms:.3f} ms wall "
+          "per step, "
           f"{busy_ms:.3f} ms device kernel time, loss "
           f"{float(losses['loss']):.5f}")
     if busy_share > 1:
@@ -119,7 +124,8 @@ def main():
     for ms, n, name in kernels[:20]:
         print(f"  {ms:8.3f} {n:5d}  {name[:100]}")
     print(json.dumps({
-        "card": card, "batch": args.batch, "step_ms": step_ms,
+        "card": card, "model": args.model, "batch": args.batch,
+        "step_ms": step_ms,
         "device_kernel_ms": busy_ms, "device_busy_share": busy_share,
         "by_kind_ms": dict(by_kind)}))
 
