@@ -78,16 +78,35 @@
    OnlyThreeDimHandPose and TwoDimHandPose at b256, two epochs of two
    steps each: K1 once a step or batch, K2 53 times a step at the 12
    ResNet-50 BN shapes the K2 phase held, K3 once a step, tiled; finite
-   losses (TwoDimHandPose's ``loss_uv`` in pixels, over 1e5 in the
-   total); the Evaluator on model_best equal to the run's best; the
-   step's split and peak memory;
+   losses with exactly the terms of each model's gates (``loss_uv`` in
+   pixels, over 1e5 in the total); the Evaluator on model_best equal to
+   the run's best; the step's split and peak memory;
 13. stems phase: the ResNet-50 trunk under k3s2_s2d equal to k3s2 with
    the same weights (f32, TF32 off, 1e-5 of range); each stem's conv and
    trunk forward timed at b256; Hand3DPoseNet with the k7s2 stem trains
    one fused step through K1, K2 and K3;
-14. prints the ``kernels`` line (launches summed over every path; K2's
-   time per step of the flagship and of ResNet-50), the card line and,
-   last, the result line.
+14. FK and MANO phase: which MANO is used (the synthetic stand-in unless
+   a MANO_RIGHT.pkl is found); FK on the card equal to
+   tests/fixtures/fk.npz (the torch reference's outputs) at both joint
+   orders (xyz atol 2e-5; uv rtol 1e-4, atol 5e-2); the MANO layer at
+   b256 on the card equal to the host's float32 run to 1e-5 of range for
+   pose_num 6, 10 and 45; ``rodrigues`` at |r| = 0, 1e-20 and 1e-3 card
+   vs host (1e-6) with the branch the card takes; ``hand_mask_loss`` on
+   uv out of int32's range or not finite, one value on the card and the
+   host;
+15. the FK and MANO models at full width (crop 256, bf16, the CLIs'
+   default input channels: 3 for TwoDimHandPoseWithFK, ThreeDimHandPose
+   and MANO3DHandPose, 24 for ThreeHandShapeAndPoseMANO and
+   Resnet50MANO3DHandPose; MANO pose_num 10), each as 11 and 12 do:
+   serving (the Evaluator, ``serve`` at b256 device resident, its
+   layers), the card against the host (f32, b4 crop 64, in two parts:
+   the geometry's inputs, then the outputs from the host's geometry
+   inputs), and the Worker for one epoch of two steps with validation
+   (K2 36 a step at the flagship's 5 shapes for ResNetMano, 53 for the
+   ResNet-50 trunks; the loss terms of each model's gates);
+16. prints the ``kernels`` line (launches summed over every path; K2's
+   time per step of the flagship, of ResNet-50 and of ResNetMano), the
+   card line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero; without a card, or
 without the package beside it, it exits non-zero before printing results.
@@ -138,9 +157,21 @@ BN50_SHAPES = (("stem", BATCH * 128 * 128, 64, 1),
 # (N, C) that K2 is also held at in float32: the widest rows
 F32_MOMENT_SHAPES = ((BATCH * 8 * 8, 2048), (BATCH * 16 * 16, 1024))
 STEM = (BATCH, 64, 128, 128)     # the stem pool's input, NCHW
+# the b256 crop-256 ResNetMano trunk of ThreeHandShapeAndPoseMANO
+# (BasicBlock x [3, 4, 6, 3]): 36 per step at the flagship's 5 shapes
+BN_MANO_SHAPES = (("stem", BATCH * 128 * 128, 64, 1),
+                  ("stage1", BATCH * 64 * 64, 64, 6),
+                  ("stage2", BATCH * 32 * 32, 128, 9),
+                  ("stage3", BATCH * 16 * 16, 256, 13),
+                  ("stage4", BATCH * 8 * 8, 512, 7))
 # the ResNet-50 models on the RHD tree: 3 input channels (the image crop)
 RESNET50_MODELS = ("Hand3DPoseNet", "OnlyThreeDimHandPose",
                    "TwoDimHandPose")
+# the FK and MANO models on the RHD tree, each at its CLI's default
+# input channels: 3, or 24 (image and scoremaps) for the last two
+FK_MANO_MODELS = ("TwoDimHandPoseWithFK", "ThreeDimHandPose",
+                  "MANO3DHandPose", "ThreeHandShapeAndPoseMANO",
+                  "Resnet50MANO3DHandPose")
 
 
 def check(ok, what):
@@ -677,7 +708,7 @@ def check_worker_launches(worker, what, bn_shapes=BN_SHAPES, trunks=2):
     ResNet-50), K3 once a trunk and step, all tiled, dy never copied."""
     k1, k2, k3 = _counts()
     steps = worker.state.step
-    n_val = 2 * -(-len(worker.val_ds) // BATCH)
+    n_val = worker.cfg.max_epoch * -(-len(worker.val_ds) // BATCH)
     per_step = trunks * sum(n for _, _, _, n in bn_shapes)
     launches = [k1.launches, k2.launches, k3.launches]
     check(launches == [steps + n_val, per_step * steps, trunks * steps],
@@ -1334,27 +1365,82 @@ def interhand_training_phase(dev, root):
 
 
 # ---------------------------------------------------------------------------
-# the ResNet-50 models: Hand3DPoseNet serving and training, the trainer-A
-# Workers, the three stems
+# the one-trunk models (the ResNet-50, FK and MANO families): serving,
+# the Evaluator and training through the Worker, the three stems
 
 
-def resnet50_config(root, model="Hand3DPoseNet", logs="logs", **kw):
-    """A ResNet-50 model at full width on the RHD tree: crop 256, 3 input
-    channels (the image crop, the CLI's default), resnet_out_feature_dim
-    1024, bf16 compute, f32 params, bn_variance 'fast', b256, two epochs
-    of two steps (the tree's one split trains and validates)."""
+def model_config(root, model="Hand3DPoseNet", logs="logs", **kw):
+    """A model of the ResNet-50, FK or MANO families at full width on the
+    RHD tree: crop 256, its CLI's default input channels (3, the image
+    crop; 24, image and scoremaps, for ThreeHandShapeAndPoseMANO and
+    Resnet50MANO3DHandPose), resnet_out_feature_dim 1024, bf16 compute,
+    f32 params, bn_variance 'fast', mano_pose_num 10, the synthetic MANO
+    stand-in, b256, two epochs of two steps (the tree's one split trains
+    and validates)."""
     from handpose_tpu_torch import Config
-    return Config(model_name=model, input_channels=3, dataset_name="RHD",
-                  dataset_root_dir=root, batch_size=BATCH,
-                  infer_batch_size=BATCH, max_epoch=2,
+    from handpose_tpu_torch.config import default_input_channels
+    kw = {"max_epoch": 2, **kw}
+    return Config(model_name=model,
+                  input_channels=default_input_channels(model),
+                  dataset_name="RHD", dataset_root_dir=root,
+                  batch_size=BATCH, infer_batch_size=BATCH,
                   use_val_dataset_to_debug=True, save_log_dir=logs,
                   cache_decoded=True, **kw)
 
 
-def resnet50_serving_phase(dev, root, raw_host):
-    """Hand3DPoseNet's serving path: the Evaluator over the split (one K1
-    launch a batch) and serve on one batch, device resident; the card
-    against the host on a small float32 batch; the layers' times."""
+def trunk_of(model):
+    """The convolutional trunk of a model of one trunk (its input is
+    NCHW): a ResNet or ``ResNetMano``."""
+    from handpose_tpu_torch.nn import ResNet, ResNetMano
+    return next(m for m in model.modules()
+                if isinstance(m, (ResNet, ResNetMano)))
+
+
+def _flat_tensors(d):
+    return [t for v in d.values()
+            for t in (v if isinstance(v, tuple) else (v,))]
+
+
+def card_vs_host_geometry(dev, root, model):
+    """An FK or MANO model's serving path (preprocessing, the inference
+    build's forward), float32, TF32 off, b4 at crop 64, on the card and
+    the host: the geometry's inputs to 1e-4 of range, then the card's
+    outputs computed from the host's geometry inputs to 1e-4 of range.
+    Random heads give FK and MANO angles of hundreds of radians and
+    joints near the projection's pole, where the geometry multiplies
+    float32 rounding in its inputs by up to ~1e3, so the two parts are
+    held apart."""
+    from handpose_tpu_torch.data.rhd import RHDDataset
+    from handpose_tpu_torch.infer import load_serving_model, serve
+    from handpose_tpu_torch.models import hook_geometry_inputs
+    cfg = model_config(root, model, compute_dtype="float32",
+                       input_img_shape=(64, 64))
+    small = RHDDataset(root, "evaluation",
+                       cache_decoded=True).raw_batch(range(4))
+    host_model = load_serving_model(cfg, device="cpu")
+    host_in = hook_geometry_inputs(host_model)
+    host = serve(host_model, small, cfg, device="cpu")
+    card_model = load_serving_model(cfg, device=dev)
+    card_in = hook_geometry_inputs(card_model)
+    serve(card_model, small, cfg, device=dev)
+    in_err = max(rel_err(h, c) for h, c in zip(_flat_tensors(host_in),
+                                               _flat_tensors(card_in)))
+    given = load_serving_model(cfg, device=dev)
+    hook_geometry_inputs(given, host_in)
+    card = serve(given, small, cfg, device=dev)
+    errs = [rel_err(h, c) for h, c in zip(host, card) if h is not None]
+    check(in_err <= F32_RTOL and max(errs) <= F32_RTOL,
+          f"{model} card vs host path, f32, b4 crop 64: geometry inputs "
+          f"{in_err:.3g}, outputs from the host's geometry inputs "
+          f"{max(errs):.3g} of range <= {F32_RTOL}")
+    return {"geometry_inputs": in_err, "outputs": errs}
+
+
+def model_serving_phase(dev, root, raw_host, model="Hand3DPoseNet"):
+    """A model's serving path: the Evaluator over the split (one K1 launch
+    a batch) and serve on one batch, device resident; the card against
+    the host on a small float32 batch (for the FK and MANO models in two
+    parts, :func:`card_vs_host_geometry`); the layers' times."""
     from handpose_tpu_torch.data.preprocess import (model_input,
                                                     preprocess_batch)
     from handpose_tpu_torch.data.rhd import RHDDataset
@@ -1363,11 +1449,12 @@ def resnet50_serving_phase(dev, root, raw_host):
     from handpose_tpu_torch.infer.evaluator import serving_kwargs
     from handpose_tpu_torch.ops import scoremap_cuda
 
-    cfg = resnet50_config(root)
+    cfg = model_config(root, model)
     check(cfg.crop_size == 256 and cfg.compute_dtype == "bfloat16"
-          and cfg.resnet_out_feature_dim == 1024 and cfg.resnet_stem == "k3s2",
-          "Hand3DPoseNet at full width: crop 256, 3 channels, 1024-d "
-          "features, bf16 compute, k3s2 stem")
+          and cfg.resnet_out_feature_dim == 1024 and cfg.resnet_stem == "k3s2"
+          and cfg.mano_pose_num == 10,
+          f"{model} at full width: crop 256, {cfg.input_channels} channels, "
+          "1024-d features, bf16 compute, k3s2 stem, MANO pose_num 10")
     raw = raw_host.to(dev)
     ev = Evaluator(cfg, device=dev)
     server = load_serving_model(cfg, device=dev)
@@ -1388,49 +1475,56 @@ def resnet50_serving_phase(dev, root, raw_host):
     peak = torch.cuda.max_memory_allocated()
     n_batches = -(-N_SAMPLES // BATCH)
     check(eval_launches == n_batches and launches == n_batches + 1,
-          f"Hand3DPoseNet: scoremap launched once per Evaluator batch "
+          f"{model}: scoremap launched once per Evaluator batch "
           f"({eval_launches} for {n_batches}) and once by serve")
     check(np.isfinite(mpjpe) and mpjpe > 0,
-          f"Hand3DPoseNet whole-split MPJPE finite: {mpjpe:.4f} mm")
-    check(tuple(xyz.shape) == (BATCH, 21, 3) and tuple(uv.shape) ==
-          (BATCH, 21, 2) and bool(torch.isfinite(xyz).all()
-                                  and torch.isfinite(uv).all()),
-          "Hand3DPoseNet serve: finite (B, 21, 3) and (B, 21, 2)")
+          f"{model} whole-split MPJPE finite: {mpjpe:.4f} mm")
+    # ThreeHandShapeAndPoseMANO has no uv without network_regress_uv
+    check(tuple(xyz.shape) == (BATCH, 21, 3)
+          and bool(torch.isfinite(xyz).all())
+          and (uv is None or (tuple(uv.shape) == (BATCH, 21, 2)
+                              and bool(torch.isfinite(uv).all()))),
+          f"{model} serve: finite (B, 21, 3) xyz"
+          + (", no uv" if uv is None else " and (B, 21, 2) uv"))
 
-    cfg32 = cfg.replace(compute_dtype="float32")
-    small = RHDDataset(root, "evaluation",
-                       cache_decoded=True).raw_batch(range(4))
-    host = serve(load_serving_model(cfg32, device="cpu"), small, cfg32,
-                 device="cpu")
-    card = serve(load_serving_model(cfg32, device=dev), small, cfg32,
-                 device=dev)
-    errs = [rel_err(a, b) for a, b in zip(host, card)]
-    check(max(errs) <= F32_RTOL,
-          f"Hand3DPoseNet card vs host path, f32, b4: xyz {errs[0]:.3g}, uv "
-          f"{errs[1]:.3g} of range <= {F32_RTOL}")
+    if model in FK_MANO_MODELS:
+        errs = card_vs_host_geometry(dev, root, model)
+    else:
+        cfg32 = cfg.replace(compute_dtype="float32")
+        small = RHDDataset(root, "evaluation",
+                           cache_decoded=True).raw_batch(range(4))
+        host = serve(load_serving_model(cfg32, device="cpu"), small, cfg32,
+                     device="cpu")
+        card = serve(load_serving_model(cfg32, device=dev), small, cfg32,
+                     device=dev)
+        errs = [rel_err(a, b) for a, b in zip(host, card)]
+        check(max(errs) <= F32_RTOL,
+              f"{model} card vs host path, f32, b4: xyz {errs[0]:.3g}, uv "
+              f"{errs[1]:.3g} of range <= {F32_RTOL}")
 
     with torch.inference_mode():
         sample = preprocess_batch(raw, **serving_kwargs(cfg))
-        inp = model_input(sample, 3)
+        inp = model_input(sample, cfg.input_channels)
         x = inp.permute(0, 3, 1, 2).to(dtype=torch.bfloat16,
                                        memory_format=torch.channels_last)
         K, sc, rt = (sample["camera_intrinsic_matrix"],
                      sample["keypoint_scale"], sample["keypoint_xyz_root"])
+        trunk = trunk_of(server)
         layers = {
             "serve_ms": cuda_ms(lambda: serve(server, raw, cfg, dev), 5),
             "preprocess_ms": cuda_ms(
                 lambda: preprocess_batch(raw, **serving_kwargs(cfg)), 5),
             "forward_ms": cuda_ms(lambda: server(inp, K, sc, rt), 5),
-            "trunk_ms": cuda_ms(
-                lambda: server.resnet_extractor.trunk(x), 5),
+            "trunk_ms": cuda_ms(lambda: trunk(x), 5),
         }
         del sample, inp, x
-    out = {"mpjpe_mm": mpjpe, "evaluator_img_per_s": N_SAMPLES / t_eval,
+    out = {"model": model, "input_channels": cfg.input_channels,
+           "mpjpe_mm": mpjpe, "evaluator_img_per_s": N_SAMPLES / t_eval,
            "serve_img_per_s_b256_device_resident":
                BATCH / layers["serve_ms"] * 1e3,
            "max_memory_allocated_bytes": peak, "card_vs_host_rel": errs,
            **layers}
-    print(f"Hand3DPoseNet serving b{BATCH}: "
+    print(f"{model} serving b{BATCH}: "
           f"{out['serve_img_per_s_b256_device_resident']:.1f} img/s device "
           f"resident (serve {layers['serve_ms']:.3f} ms = preprocess "
           f"{layers['preprocess_ms']:.3f} + forward {layers['forward_ms']:.3f}"
@@ -1442,19 +1536,29 @@ def resnet50_serving_phase(dev, root, raw_host):
     return out, launches
 
 
-def resnet50_training_phase(dev, root, raw_host, model):
-    """The Worker of a ResNet-50 model at b256, two epochs of two steps
-    with validation: launch counts (K1 a step or batch, K2 53 a step at
-    the 12 held shapes, K3 once a step, tiled), finite losses (for
-    TwoDimHandPose ``loss_uv`` in pixels and the total carrying it over
-    1e5), the Evaluator on model_best equal to the run's best, the step's
-    layer times and peak memory."""
+def model_training_phase(dev, root, raw_host, model, max_epoch=2):
+    """The Worker of a model at b256, ``max_epoch`` epochs of two steps
+    with validation: launch counts (K1 a step or batch; K2 53 a step at
+    the 12 ResNet-50 shapes, or 36 at the flagship's 5 for ResNetMano; K3
+    once a step, tiled), finite losses with exactly the terms of the
+    model's gates (``loss_uv`` in pixels, over 1e5 in the total), the
+    Evaluator on model_best equal to the run's best, the step's layer
+    times and peak memory."""
+    from handpose_tpu_torch.config import LOSS_GATES
     from handpose_tpu_torch.infer import Evaluator
+    from handpose_tpu_torch.nn import ResNetMano
     from handpose_tpu_torch.train import Worker
 
     logs = tempfile.mkdtemp(dir=root)
-    cfg = resnet50_config(root, model, logs)
+    cfg = model_config(root, model, logs, max_epoch=max_epoch)
     worker = Worker(cfg, run_dir=logs, device=dev)
+    bn_shapes = (BN_MANO_SHAPES
+                 if isinstance(trunk_of(worker.model), ResNetMano)
+                 else BN50_SHAPES)
+    # whether the model gives a uv, which the uv and hand-mask terms need
+    has_uv = []
+    worker.model.register_forward_hook(
+        lambda module, args, out: has_uv.append(out.uv is not None))
     step = worker.train_step
     step_losses = []
 
@@ -1474,20 +1578,24 @@ def resnet50_training_phase(dev, root, raw_host, model):
     peak = torch.cuda.max_memory_allocated()
     k2_shapes = dict(_counts()[1].by_shape)
     steps = worker.state.step
-    check(steps == 4, f"{model} Worker took {steps} train steps over 2 "
-          "epochs")
+    check(steps == 2 * max_epoch, f"{model} Worker took {steps} train steps "
+          f"over {max_epoch} epochs")
     launches = check_worker_launches(worker, f"{model} Worker run",
-                                     BN50_SHAPES, trunks=1)
+                                     bn_shapes, trunks=1)
     losses = epoch_losses(worker)
-    check(len(losses) == 2 and all(np.isfinite(losses)) and all(
+    check(len(losses) == max_epoch and all(np.isfinite(losses)) and all(
         np.isfinite(v) for d in step_losses for v in d.values()),
         f"{model} Worker: finite losses, epochs {losses}")
-    if model == "TwoDimHandPose":
-        ok = all(d["loss_uv"] > 1.0 and abs(d["loss"] - d["loss_uv"] / 1e5)
-                 <= 1e-6 * d["loss"] for d in step_losses)
-        check(ok, f"TwoDimHandPose: loss_uv reported in pixels^2 "
-              f"({step_losses[0]['loss_uv']:.4f}), the total carries it "
-              f"over 1e5 ({step_losses[0]['loss']:.8f})")
+    check(len(set(has_uv)) == 1, f"{model}: a uv on every call or none")
+    terms = {f"loss_{g}" for g, on in LOSS_GATES[model].items() if on
+             and (has_uv[0] or g not in ("uv", "hand_mask"))}
+    parts = [{k: v / (1e5 if k == "loss_uv" else 1.0)
+              for k, v in d.items() if k != "loss"} for d in step_losses]
+    ok = all(set(p) == terms and abs(d["loss"] - sum(p.values()))
+             <= 1e-5 * sum(abs(v) for v in p.values())
+             for d, p in zip(step_losses, parts))
+    check(ok, f"{model}: the loss terms of its gates {sorted(terms)}, "
+          f"loss_uv over 1e5 in the total ({step_losses[0]})")
     ev_mpjpe = Evaluator(cfg, weights=os.path.join(logs, "model_best"),
                          device=dev).evaluate()
     check(np.isfinite(best) and ev_mpjpe == best,
@@ -1496,7 +1604,8 @@ def resnet50_training_phase(dev, root, raw_host, model):
     worker.train_step = step
     split = step_split(worker, raw_host.to(dev))
     med = float(np.median(worker.step_seconds[1:]))
-    out = {"model": model, "steps": steps, "epoch_losses": losses,
+    out = {"model": model, "input_channels": cfg.input_channels,
+           "steps": steps, "epoch_losses": losses,
            "step_losses": step_losses, "val_mpjpe": best,
            "evaluator_model_best_mpjpe": ev_mpjpe, "run_s": t_run,
            "step_s": worker.step_seconds,
@@ -1514,6 +1623,85 @@ def resnet50_training_phase(dev, root, raw_host, model):
     del worker
     torch.cuda.empty_cache()
     return out, launches, k2_shapes
+
+
+def fk_mano_phase(dev):
+    """FK on the card against ``tests/fixtures/fk.npz`` (the torch
+    reference's outputs) at both joint orders, at the JAX test's
+    tolerances; the MANO layer on the synthetic stand-in at b256 on the
+    card against the host's plain float32 run, 1e-5 of range, for
+    pose_num 6, 10 and 45; ``rodrigues`` near and at a zero rotation,
+    card vs host, and which branch the card takes; ``hand_mask_loss`` on
+    uv out of int32's range or not finite: one value on the card and the
+    host."""
+    from handpose_tpu_torch.losses import hand_mask_loss
+    from handpose_tpu_torch.nn import fk, mano
+    from handpose_tpu_torch.ops.rotations import rodrigues
+
+    path = mano.find_mano_pkl()
+    print(f"MANO used by the FK and MANO phases: "
+          f"{path or 'the synthetic stand-in (no MANO_RIGHT.pkl)'}",
+          flush=True)
+    out = {"mano": path or "synthetic stand-in"}
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "fk.npz")
+    with np.load(fixture) as f:
+        f = {k: f[k] for k in f.files}
+    args = [torch.from_numpy(f[k]).to(dev) for k in (
+        "root_angles", "other_angles", "bone_lengths", "K", "scale", "root")]
+    for switched in (True, False):
+        xyz, uv = fk.forward_kinematics(*args, joint_order_switched=switched)
+        key = "noswitch" if switched else "switch"   # the fixture's names
+        want_xyz, want_uv = f[f"xyz_{key}"], f[f"uv_{key}"]
+        xyz, uv = xyz.cpu().numpy(), uv.cpu().numpy()
+        ex = float(np.abs(xyz - want_xyz).max())
+        eu = float((np.abs(uv - want_uv) - 1e-4 * np.abs(want_uv)).max())
+        check(ex <= 2e-5 and eu <= 5e-2,
+              f"FK on the card == fk.npz, joint_order_switched={switched}: "
+              f"xyz {ex:.3g} <= 2e-5, uv {eu:.3g} <= 5e-2 + 1e-4 |uv|")
+        out[f"fk_switched_{switched}"] = {"xyz_abs_err": ex,
+                                          "uv_excess_err": eu}
+    g = torch.Generator().manual_seed(3)
+    for pose_num in (6, 10, 45):
+        inputs = (torch.randn(BATCH, 3, generator=g),
+                  torch.randn(BATCH, pose_num, generator=g),
+                  torch.randn(BATCH, 10, generator=g) * 0.5)
+        inputs[0][0] = 0.0                   # a zero rotation
+        layer = mano.ManoLayer(mano.synthetic_mano(), pose_num=pose_num)
+        host = layer(*inputs)
+        card = layer.to(dev)(*(t.to(dev) for t in inputs))
+        errs = [rel_err(h, c) for h, c in zip(host, card)]
+        check(card[1].device.type == "cuda" and max(errs) <= 1e-5,
+              f"MANO layer b{BATCH} pose_num {pose_num}, card vs host: "
+              f"vertices {errs[0]:.3g}, joints {errs[1]:.3g} of range "
+              "<= 1e-5")
+        out[f"mano_pose_num_{pose_num}"] = errs
+    # rodrigues' small-angle test |r|^2 <= 1e-60 (0 in float32) at |r| =
+    # 0, 1e-20 (|r|^2 denormal) and 1e-3: which branch the card takes,
+    # and the rotation against the host's to 1e-6
+    r = torch.tensor([[0.0, 0.0, 0.0], [1e-20, 0.0, 0.0], [6e-4, 8e-4, 0.0]])
+    taylor = [bool(t) for t in ((r.to(dev) ** 2).sum(-1) <= 1e-30 * 1e-30)]
+    err = float((rodrigues(r.to(dev)).cpu() - rodrigues(r)).abs().max())
+    check(err <= 1e-6, f"rodrigues at |r| = 0, 1e-20, 1e-3, card vs host: "
+          f"{err:.3g} <= 1e-6; the card takes the Taylor branch at "
+          f"{taylor}, the host at "
+          f"{[bool(t) for t in ((r ** 2).sum(-1) <= 1e-30 * 1e-30)]}")
+    out["rodrigues_taylor_branch_on_card"] = taylor
+    odd = np.float32([1e10, -1e10, np.inf, -np.inf, np.nan, 3e9, -3e9,
+                      300.7, 12.5, -0.5, 39.99, 63.99, 7.0])
+    rng = np.random.default_rng(3)
+    mask = torch.from_numpy((rng.uniform(size=(4, 40, 64)) > 0.5).astype(
+        np.float32))
+    pred = torch.from_numpy(odd[np.arange(4 * 21 * 2).reshape(4, 21, 2)
+                                % len(odd)])
+    gt = torch.from_numpy(rng.uniform(-5, 70, (4, 21, 2)).astype(np.float32))
+    host = float(hand_mask_loss(pred, gt, mask))
+    card = float(hand_mask_loss(pred.to(dev), gt.to(dev), mask.to(dev)))
+    check(host == card and np.isfinite(host),
+          f"hand_mask_loss on uv of +-1e10, +-inf, NaN, +-3e9: card "
+          f"{card!r} == host {host!r}")
+    out["hand_mask_loss_non_finite_uv"] = host
+    return out
 
 
 def stems_phase(dev, root, raw_host):
@@ -1560,7 +1748,7 @@ def stems_phase(dev, root, raw_host):
     del x
 
     # ---- the main path of the k7s2 stem: one fused train step ----
-    cfg = resnet50_config(root, resnet_stem="k7s2")
+    cfg = model_config(root, resnet_stem="k7s2")
     model = build_model(cfg).to(dev)
     state = create_train_state(model, cfg)
     step = make_fused_train_step(model, cfg, preprocess_batch,
@@ -1658,18 +1846,31 @@ def main():
         ih_serving["tree_write_s"] = ih_write_s
         ih_training, (k1_ih_train, k2_ih_train, k3_ih_train) = \
             interhand_training_phase(dev, ih_root)
-        r50_serving, k1_r50_serving = resnet50_serving_phase(
+        r50_serving, k1_r50_serving = model_serving_phase(
             dev, root, raw_host)
         r50_training, r50_launches = {}, {}
         for model in RESNET50_MODELS:
             r50_training[model], r50_launches[model], shapes = \
-                resnet50_training_phase(dev, root, raw_host, model)
+                model_training_phase(dev, root, raw_host, model)
             if model == "Hand3DPoseNet":
                 r50_k2_shapes = shapes
         stems, stem_launches = stems_phase(dev, root, raw_host)
+        fk_mano = fk_mano_phase(dev)
+        fm_serving, fm_training, k1_fm_serving, fm_launches = {}, {}, {}, {}
+        for model in FK_MANO_MODELS:
+            fm_serving[model], k1_fm_serving[model] = \
+                model_serving_phase(dev, root, raw_host, model)
+            fm_training[model], fm_launches[model], shapes = \
+                model_training_phase(dev, root, raw_host, model,
+                                        max_epoch=1)
+            if model == "ThreeHandShapeAndPoseMANO":
+                mano_k2_shapes = shapes
     moments_per_step(k2, k2_shapes, training["steps"], "flagship")
     moments_per_step(k2, r50_k2_shapes,
                      r50_training["Hand3DPoseNet"]["steps"], "resnet50")
+    moments_per_step(k2, mano_k2_shapes,
+                     fm_training["ThreeHandShapeAndPoseMANO"]["steps"],
+                     "resnet_mano")
     k1["max_abs_err"] = max(k1["max_abs_err"], ih_k1_err)
     k1["launches_by_path"] = {
         "serving": k1_serving, "training": k1_train,
@@ -1677,24 +1878,29 @@ def main():
         "interhand_training": k1_ih_train,
         "resnet50_serving": k1_r50_serving,
         **{f"{m}_training": r50_launches[m][0] for m in RESNET50_MODELS},
-        "k7s2_step": stem_launches[0]}
+        "k7s2_step": stem_launches[0],
+        **{f"{m}_serving": k1_fm_serving[m] for m in FK_MANO_MODELS},
+        **{f"{m}_training": fm_launches[m][0] for m in FK_MANO_MODELS}}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {
         "training": k2_train, "augmented_training": k2_aug,
         "interhand_training": k2_ih_train,
         **{f"{m}_training": r50_launches[m][1] for m in RESNET50_MODELS},
-        "k7s2_step": stem_launches[1]}
+        "k7s2_step": stem_launches[1],
+        **{f"{m}_training": fm_launches[m][1] for m in FK_MANO_MODELS}}
     k2["launches"] = sum(k2["launches_by_path"].values())
     k3["launches_by_path"] = {
         "training": k3_train, "augmented_training": k3_aug,
         "interhand_training": k3_ih_train,
         **{f"{m}_training": r50_launches[m][2] for m in RESNET50_MODELS},
-        "k7s2_step": stem_launches[2]}
+        "k7s2_step": stem_launches[2],
+        **{f"{m}_training": fm_launches[m][2] for m in FK_MANO_MODELS}}
     k3["launches"] = sum(k3["launches_by_path"].values())
     k3["launches_by_variant"] = training["pool_bwd_launches_by_variant"]
     for record in (decode, serving, training, augmented, preemption,
                    ih_serving, ih_training, r50_serving, stems,
-                   *r50_training.values()):
+                   *r50_training.values(), fk_mano, *fm_serving.values(),
+                   *fm_training.values()):
         record["card"] = card
     print(json.dumps({"decode": decode}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
@@ -1708,6 +1914,11 @@ def main():
         print(json.dumps({"resnet50_training": r50_training[model]}),
               flush=True)
     print(json.dumps({"stems": stems}), flush=True)
+    print(json.dumps({"fk_mano": fk_mano}), flush=True)
+    for model in FK_MANO_MODELS:
+        print(json.dumps({"fk_mano_serving": fm_serving[model]}), flush=True)
+        print(json.dumps({"fk_mano_training": fm_training[model]}),
+              flush=True)
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

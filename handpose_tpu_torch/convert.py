@@ -19,6 +19,9 @@ names, so every path names a module; the leaf maps as follows:
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, and ``mean``/``var``
   -> the ``running_mean``/``running_var`` buffers (flax keeps the biased
   variance, which the port's BatchNorm reads as it is).
+
+Non-persistent buffers (the MANO layer's constants, which the JAX
+package keeps outside its variables) are neither filled nor exported.
 """
 
 from __future__ import annotations
@@ -74,6 +77,16 @@ def _from_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
     return value
 
 
+def _variables(model: nn.Module, grads: bool = False) -> dict:
+    """{name: tensor} of the parameters and, unless ``grads``, the
+    buffers that ``state_dict()`` keeps, in registration order."""
+    tensors = dict(model.named_parameters())
+    if not grads:
+        keep = set(model.state_dict())
+        tensors.update((n, t) for n, t in model.named_buffers() if n in keep)
+    return tensors
+
+
 def load_flax_variables(model: nn.Module,
                         flat: Mapping[str, np.ndarray]) -> nn.Module:
     """Copy flattened flax variables into ``model`` in place.
@@ -82,8 +95,7 @@ def load_flax_variables(model: nn.Module,
     of the model that no path fills, and ``ValueError`` on a shape
     mismatch.  Returns the model.
     """
-    targets = dict(model.named_parameters())
-    targets.update(model.named_buffers())
+    targets = _variables(model)
     filled = set()
     for path, value in flat.items():
         parts = path.split("/")
@@ -115,11 +127,8 @@ def export_flax_variables(model: nn.Module, grads: bool = False) -> dict:
     ``grads=True``, the ``.grad`` of every parameter instead, under its
     ``params/...`` path (no statistics); a parameter without a gradient
     raises ``ValueError``."""
-    tensors = list(model.named_parameters())
-    if not grads:
-        tensors += list(model.named_buffers())
     flat = {}
-    for name, tensor in tensors:
+    for name, tensor in _variables(model, grads).items():
         module_path, _, attr = name.rpartition(".")
         if attr == "weight":
             is_bn = isinstance(model.get_submodule(module_path), BatchNorm)

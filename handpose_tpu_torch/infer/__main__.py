@@ -17,7 +17,11 @@ decoded cache with ``--set cache_decoded=true`` (built on first use).
 init.  ``--model`` names the model (default: the one a checkpoint path
 ``logs/<model>/<dataset>/run_<ts>/<ckpt>`` names, else
 Hand3DPosePriorNetwork); ``--input_channels`` defaults to the model's
-convention (21 for the flagship, 3 for the ResNet-50 models).
+convention (21 for the flagship; 24, the image and its scoremaps, for
+ThreeHandShapeAndPoseMANO and Resnet50MANO3DHandPose; 3 otherwise).
+The MANO models read ``MANO_RIGHT.pkl`` from ``--set
+mano_right_hand_path=...``, ``$MANO_RIGHT_PKL`` or
+``config/mano/models/``, else a synthetic stand-in (named on stderr).
 Counterpart of the repository's ``inference.py``.
 """
 

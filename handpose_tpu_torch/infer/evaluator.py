@@ -9,13 +9,15 @@ metric is the fused eval step on the model built with
 (``train/trainer.py:66,129``).  The JAX ``Evaluator`` builds the
 ``is_inference=True`` model instead, and its metrics then read the
 ``can_xyz`` that branch does not return; the port does not copy that.
-The trainer-A models have no inference flag and are evaluated as built;
+The trainer-A models are evaluated as built (``TwoDimHandPoseWithFK``
+with ``is_inference=False``, whose ``xyz`` is the inference branch's);
 ``TwoDimHandPose`` has no 3-D output, so its PCK curve is zero and its
 AUC 0, as in the JAX ``evaluate_full``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import warnings
 from typing import Mapping, Optional, Union
@@ -28,7 +30,7 @@ from ..convert import load_flax_variables
 from ..data.pipeline import open_dataset, raw_device_batches
 from ..data.synthetic import fake_sample_batch
 from ..device import resolve_device
-from ..models import build_model
+from ..models import build_model, mano_source_of
 from ..train.checkpoints import load_variables
 from ..train.steps import make_eval_step, make_fused_eval_step
 
@@ -61,6 +63,24 @@ def load_weights(model, weights: Weights):
     return load_flax_variables(model, weights)
 
 
+def _check_mano(cfg: Config, weights: Weights) -> None:
+    """Warn when a checkpoint's run trained on another MANO than the one
+    ``cfg`` loads: the MANO constants are not in the checkpoint, and the
+    metrics would silently change with them."""
+    mano = mano_source_of(cfg)
+    if mano is None or not isinstance(weights, str):
+        return
+    prov = os.path.join(os.path.dirname(os.path.abspath(weights)),
+                        "provenance.json")
+    if not os.path.exists(prov):
+        return
+    with open(prov) as f:
+        trained = json.load(f).get("mano")
+    if trained is not None and trained != mano:
+        warnings.warn(f"{weights} was trained with MANO {trained}; this "
+                      f"evaluation loads {mano}")
+
+
 def serving_kwargs(cfg: Config) -> dict:
     """The preprocessing arguments of the JAX Evaluator's fused path."""
     return dict(crop_size=cfg.crop_size, sigma=cfg.sigma,
@@ -81,6 +101,7 @@ class Evaluator:
         self.device = resolve_device(device)
         model = build_model(cfg, is_inference=False)
         self.model = load_weights(model, weights).to(self.device)
+        _check_mano(cfg, weights)
         # synthetic data: fake sample dicts through the non-fused step
         self.fused = not (cfg.use_fake_data
                           or cfg.dataset_name == "synthetic")

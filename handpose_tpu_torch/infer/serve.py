@@ -32,7 +32,9 @@ def serve(model, raw: RawBatch, cfg: Config,
           device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(xyz (B, 21, 3), uv (B, 21, 2)) for a raw batch (``RawBatch`` or
     ``InterHandRawBatch``, of numpy arrays or
-    tensors) on ``device`` (default: the card), where ``model`` lies."""
+    tensors) on ``device`` (default: the card), where ``model`` lies.
+    ``ThreeHandShapeAndPoseMANO`` has no uv (None) unless
+    ``cfg.network_regress_uv``."""
     raw = raw.to(resolve_device(device))
     sample = preprocess_fn_for(raw)(raw, **serving_kwargs(cfg))
     inp = model_input(sample, cfg.input_channels)

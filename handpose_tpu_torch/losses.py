@@ -51,10 +51,18 @@ def hand_mask_loss(pred_uv: torch.Tensor, gt_uv: torch.Tensor,
     clamped by W and v by H, as the JAX package does (the reference
     clamps both by the last axis)."""
     H, W = hand_mask.shape[-2], hand_mask.shape[-1]
-    lim = torch.tensor([W - 1, H - 1], dtype=torch.int32,
+    lim = torch.tensor([W - 1, H - 1], dtype=torch.float32,
                        device=hand_mask.device)
-    gt = torch.minimum(gt_uv.to(torch.int32).clamp(min=0), lim).long()
-    pr = torch.minimum(pred_uv.to(torch.int32).clamp(min=0), lim).long()
+
+    def pixel(uv):
+        # JAX's saturating int32 cast (NaN -> 0), then the clamp: a
+        # clamp in float32 before truncating gives that on every device,
+        # where torch's own cast of NaN, inf or |uv| >= 2^31 is undefined
+        # (INT_MIN on the host)
+        uv = torch.nan_to_num(uv.to(torch.float32), nan=0.0)
+        return torch.minimum(uv.clamp(min=0.0), lim).long()
+
+    gt, pr = pixel(gt_uv), pixel(pred_uv)
     b = torch.arange(hand_mask.shape[0], device=hand_mask.device)[:, None]
     gt_samples = hand_mask[b, gt[..., 1], gt[..., 0]]
     pr_samples = hand_mask[b, pr[..., 1], pr[..., 0]]

@@ -1,7 +1,13 @@
 """Model zoo."""
 
-from .zoo import (Hand3DPoseNet, Hand3DPosePriorNetwork, ModelOutput,
-                   OnlyThreeDimHandPose, TwoDimHandPose, build_model)
+from .zoo import (Hand3DPoseNet, Hand3DPosePriorNetwork, MANO3DHandPose,
+                  ModelOutput, OnlyThreeDimHandPose, Resnet50MANO3DHandPose,
+                  ThreeDimHandPose, ThreeHandShapeAndPoseMANO, TwoDimHandPose,
+                  TwoDimHandPoseWithFK, build_model, hook_geometry_inputs,
+                  mano_source_of)
 
-__all__ = ["Hand3DPoseNet", "Hand3DPosePriorNetwork", "ModelOutput",
-           "OnlyThreeDimHandPose", "TwoDimHandPose", "build_model"]
+__all__ = ["Hand3DPoseNet", "Hand3DPosePriorNetwork", "MANO3DHandPose",
+           "ModelOutput", "OnlyThreeDimHandPose", "Resnet50MANO3DHandPose",
+           "ThreeDimHandPose", "ThreeHandShapeAndPoseMANO", "TwoDimHandPose",
+           "TwoDimHandPoseWithFK", "build_model", "hook_geometry_inputs",
+           "mano_source_of"]

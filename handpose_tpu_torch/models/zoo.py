@@ -1,9 +1,14 @@
 """The model zoo on the JAX package's forward contract.
 
-Port of ``handpose_tpu/models/zoo.py``; this slice carries
-``Hand3DPosePriorNetwork`` (M10, the reference's default model) and the
-ResNet-50 family: ``TwoDimHandPose`` (M1), ``OnlyThreeDimHandPose`` (M4)
-and ``Hand3DPoseNet`` (M9).  Every model is called as
+Port of ``handpose_tpu/models/zoo.py``: every model but
+``DiffusionHandPose`` (M5), which waits in ROADMAP.md queue 1.  That is
+``Hand3DPosePriorNetwork`` (M10, the reference's default model), the
+ResNet-50 family ``TwoDimHandPose`` (M1), ``OnlyThreeDimHandPose`` (M4)
+and ``Hand3DPoseNet`` (M9), the FK family ``TwoDimHandPoseWithFK`` (M2)
+and ``ThreeDimHandPose`` (M3), and the MANO family ``MANO3DHandPose``
+(M6), ``ThreeHandShapeAndPoseMANO`` (M7) and ``Resnet50MANO3DHandPose``
+(M8) on the MANO layer :func:`build_model` loads.  Every model is called
+as
 
     model(img (B, H, W, C) NHWC, camera_intrinsic_matrix,
           index_root_bone_length, keypoint_xyz_root, pose_x0=None)
@@ -17,6 +22,7 @@ function whatever ``cfg.pool_grad`` names (``ops/pooling.py``).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -24,11 +30,14 @@ import torch
 from torch import nn
 
 from ..config import MODEL_NAMES, Config
-from ..nn.heads import (PosePrior, Pose3dPrediction, ViewPoint,
-                        ViewPointPrediction)
+from ..nn.fk import forward_kinematics
+from ..nn.heads import (BoneAnglePrediction, BoneLengthPrediction,
+                        MANOBetasPrediction, MANOThetaPrediction, PosePrior,
+                        Pose3dPrediction, ViewPoint, ViewPointPrediction)
 from ..nn.layers import Dense
+from ..nn.mano import ManoLayer, ManoModel, load_mano, mano_source
 from ..nn.mlp import DecayMLP
-from ..nn.resnet import ResNetFeatureExtractor
+from ..nn.resnet import ExtendedResNet50, ResNetFeatureExtractor, ResNetMano
 from ..ops.pooling import POOL_GRADS
 from ..ops.projection import batch_project_xyz_to_uv, rel_normed_to_absolute
 from ..ops.rotations import axis_angle_rot_mat
@@ -43,6 +52,7 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 class ModelOutput:
     xyz: Optional[torch.Tensor] = None         # (B, 21, 3) absolute coords
     uv: Optional[torch.Tensor] = None          # (B, 21, 2) pixel coords
+    uv_aux: Optional[torch.Tensor] = None      # direct-2D branch (M2 infer)
     diffusion_loss: Optional[torch.Tensor] = None
     theta: Optional[torch.Tensor] = None       # MANO pose params
     beta: Optional[torch.Tensor] = None        # MANO shape params
@@ -121,6 +131,75 @@ class TwoDimHandPose(_ResNet50Model):
             (), device=img.device))
 
 
+class TwoDimHandPoseWithFK(_ResNet50Model):
+    """M2: the M1 uv head -> bone angle and length heads on the flattened
+    pixel uv -> FK -> xyz and projected uv (reference
+    TwoDimHandPoseWithFK.py).  The inference branch returns the projected
+    uv as ``uv`` and the direct one as ``uv_aux``; training picks ``uv``
+    by ``cfg.uv_from_xd``: 2 direct, 2.5 the mean, 3 projected."""
+
+    geometry_inputs = ("boneAngle", "bonelength")
+
+    def __init__(self, cfg: Config, is_inference: bool = False):
+        super().__init__(cfg)
+        self.is_inference = is_inference
+        kp = cfg.keypoint_num
+        self.twoDimPoseEstimate = _TwoDimMLP(cfg.resnet_out_feature_dim, kp)
+        self.boneAngle = BoneAnglePrediction(input_dim=kp * 2)
+        self.bonelength = BoneLengthPrediction(input_dim=kp * 2)
+
+    def forward(self, img: torch.Tensor, camera_intrinsic_matrix=None,
+                index_root_bone_length=None, keypoint_xyz_root=None,
+                pose_x0=None) -> ModelOutput:
+        B, h, w = img.shape[0], img.shape[1], img.shape[2]
+        pose = self.twoDimPoseEstimate(self.features(img)).reshape(B, -1, 2)
+        uv_direct = torch.stack([pose[..., 0] * w, pose[..., 1] * h], dim=-1)
+        flat = uv_direct.reshape(B, -1)
+        root_angles, other_angles = self.boneAngle(flat)
+        xyz, uv_proj = forward_kinematics(
+            root_angles, other_angles, self.bonelength(flat),
+            camera_intrinsic_matrix, index_root_bone_length,
+            keypoint_xyz_root, self.cfg.joint_order_switched)
+        zero = torch.zeros((), device=img.device)
+        if self.is_inference:
+            return ModelOutput(xyz=xyz, uv=uv_proj, uv_aux=uv_direct,
+                               diffusion_loss=zero)
+        if self.cfg.uv_from_xd == 2.5:
+            uv = (uv_direct + uv_proj) / 2
+        elif self.cfg.uv_from_xd == 3:
+            uv = uv_proj
+        else:
+            uv = uv_direct
+        return ModelOutput(xyz=xyz, uv=uv, diffusion_loss=zero)
+
+
+class ThreeDimHandPose(_ResNet50Model):
+    """M3: direct 63-d pose -> bone angle and length heads -> FK
+    (reference ThreeDimHandPose.py)."""
+
+    geometry_inputs = ("bone_angle_pred_model", "bone_length_pred_model")
+
+    def __init__(self, cfg: Config):
+        super().__init__(cfg)
+        self.threeDimPoseEstimate = DecayMLP(
+            cfg.resnet_out_feature_dim, cfg.keypoint_num * 3, divide=2,
+            activation="LeakyReLU", use_sigmoid=False)
+        self.bone_angle_pred_model = BoneAnglePrediction()
+        self.bone_length_pred_model = BoneLengthPrediction()
+
+    def forward(self, img: torch.Tensor, camera_intrinsic_matrix=None,
+                index_root_bone_length=None, keypoint_xyz_root=None,
+                pose_x0=None) -> ModelOutput:
+        pose63 = self.threeDimPoseEstimate(self.features(img))
+        root_angles, other_angles = self.bone_angle_pred_model(pose63)
+        xyz, uv = forward_kinematics(
+            root_angles, other_angles, self.bone_length_pred_model(pose63),
+            camera_intrinsic_matrix, index_root_bone_length,
+            keypoint_xyz_root, self.cfg.joint_order_switched)
+        return ModelOutput(xyz=xyz, uv=uv,
+                           diffusion_loss=torch.zeros((), device=img.device))
+
+
 class OnlyThreeDimHandPose(_ResNet50Model):
     """M4: direct 63-d xyz and its projection, no FK
     (reference OnlyThreeDimHandPose.py)."""
@@ -138,6 +217,104 @@ class OnlyThreeDimHandPose(_ResNet50Model):
         xyz = self.threeDimPoseEstimate(self.features(img)).reshape(B, -1, 3)
         uv = batch_project_xyz_to_uv(xyz, camera_intrinsic_matrix)
         return ModelOutput(xyz=xyz, uv=uv)
+
+
+def _mano_fc_dim(cfg: Config) -> int:
+    """rot (3), theta (pose_num), beta (10) and, with
+    ``network_regress_uv``, the uv scale and translation (3)."""
+    return 10 + cfg.mano_pose_num + 3 + (3 if cfg.network_regress_uv else 0)
+
+
+class MANO3DHandPose(_ResNet50Model):
+    """M6: theta and beta heads on ResNet-50 features -> MANO -> projected
+    uv (reference MANO3DHandPose.py)."""
+
+    geometry_inputs = ("theta_predictor", "betas_predictor")
+
+    def __init__(self, cfg: Config, mano: ManoModel):
+        super().__init__(cfg)
+        d = cfg.resnet_out_feature_dim
+        self.theta_predictor = MANOThetaPrediction(d, cfg.mano_pose_num)
+        self.betas_predictor = MANOBetasPrediction(d, cfg.mano_beta_num)
+        self.mano_layer = ManoLayer(mano, pose_num=cfg.mano_pose_num)
+
+    def forward(self, img: torch.Tensor, camera_intrinsic_matrix=None,
+                index_root_bone_length=None, keypoint_xyz_root=None,
+                pose_x0=None) -> ModelOutput:
+        feat = self.features(img)
+        root_angles, other_angles = self.theta_predictor(feat)
+        _, joints = self.mano_layer(root_angles, other_angles,
+                                    self.betas_predictor(feat))
+        uv = batch_project_xyz_to_uv(joints, camera_intrinsic_matrix)
+        return ModelOutput(xyz=joints, uv=uv,
+                           diffusion_loss=torch.zeros((), device=img.device))
+
+
+class ThreeHandShapeAndPoseMANO(nn.Module):
+    """M7: the boukhayma-style ``ResNetMano`` trunk -> (rot, theta, beta)
+    -> MANO (reference ThreeHandShapeAndPoseMANO.py, resnetMANO.py:
+    138-235).  With ``network_regress_uv`` the trunk also regresses a uv
+    scale and translation about the means [545, 128, 128]; without it
+    the model has no uv."""
+
+    geometry_inputs = ("resnet_Mano",)
+
+    def __init__(self, cfg: Config, mano: ManoModel):
+        super().__init__()
+        _check_pool_grad(cfg)
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
+        self.resnet_Mano = ResNetMano(_mano_fc_dim(cfg), cfg.input_channels,
+                                      self.dtype, cfg.bn_mode)
+        self.mano_layer = ManoLayer(mano, pose_num=cfg.mano_pose_num)
+
+    def forward(self, img: torch.Tensor, camera_intrinsic_matrix=None,
+                index_root_bone_length=None, keypoint_xyz_root=None,
+                pose_x0=None) -> ModelOutput:
+        n = self.cfg.mano_pose_num
+        xs = self.resnet_Mano(_trunk_input(img, self.dtype))
+        _, joints = self.mano_layer(xs[:, 0:3], xs[:, 3:n + 3],
+                                    xs[:, n + 3:n + 13])
+        uv = None
+        if self.cfg.network_regress_uv:
+            scale = xs[:, -3] + 545.0
+            trans = xs[:, -2:] + 128.0
+            uv = trans[:, None, :] + scale[:, None, None] * joints[:, :, :2]
+        return ModelOutput(xyz=joints, uv=uv,
+                           diffusion_loss=torch.zeros((), device=img.device))
+
+
+class Resnet50MANO3DHandPose(nn.Module):
+    """M8: ResNet-50 -> sigmoid decay MLP -> scaled (rot, theta, beta) ->
+    MANO (reference Resnet50MANO3DHandPose.py, resnet50MANO.py:26-63);
+    theta and beta are returned for the regularisation term."""
+
+    geometry_inputs = ("mlp",)
+
+    def __init__(self, cfg: Config, mano: ManoModel):
+        super().__init__()
+        _check_pool_grad(cfg)
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
+        self.extended_resnet50_extractor = ExtendedResNet50(
+            cfg.input_channels, self.dtype, cfg.resnet_stem, cfg.bn_mode)
+        self.mlp = DecayMLP(1000, _mano_fc_dim(cfg), divide=2,
+                            activation="ReLU", use_sigmoid=True)
+        self.mano_layer = ManoLayer(mano, pose_num=cfg.mano_pose_num)
+
+    def forward(self, img: torch.Tensor, camera_intrinsic_matrix=None,
+                index_root_bone_length=None, keypoint_xyz_root=None,
+                pose_x0=None) -> ModelOutput:
+        n = self.cfg.mano_pose_num
+        xs = self.mlp(self.extended_resnet50_extractor(
+            _trunk_input(img, self.dtype)))
+        rot = (xs[:, 0:3] - 0.5) * 2 * math.pi
+        theta = (xs[:, 3:n + 3] - 0.5) * 4
+        beta = (xs[:, n + 3:n + 13] - 0.5) * 0.1
+        _, joints = self.mano_layer(rot, theta, beta)
+        uv = batch_project_xyz_to_uv(joints, camera_intrinsic_matrix)
+        return ModelOutput(xyz=joints, uv=uv, theta=theta, beta=beta,
+                           diffusion_loss=torch.zeros((), device=img.device))
 
 
 class Hand3DPoseNet(_ResNet50Model):
@@ -207,23 +384,61 @@ class Hand3DPosePriorNetwork(nn.Module):
 
 _ZOO = {
     "TwoDimHandPose": TwoDimHandPose,
+    "TwoDimHandPoseWithFK": TwoDimHandPoseWithFK,
+    "ThreeDimHandPose": ThreeDimHandPose,
     "OnlyThreeDimHandPose": OnlyThreeDimHandPose,
+    "MANO3DHandPose": MANO3DHandPose,
+    "ThreeHandShapeAndPoseMANO": ThreeHandShapeAndPoseMANO,
+    "Resnet50MANO3DHandPose": Resnet50MANO3DHandPose,
     "Hand3DPoseNet": Hand3DPoseNet,
     "Hand3DPosePriorNetwork": Hand3DPosePriorNetwork,
 }
+# the models that take the MANO layer's constants
+_NEEDS_MANO = {"MANO3DHandPose", "ThreeHandShapeAndPoseMANO",
+               "Resnet50MANO3DHandPose"}
 # the models whose constructor takes ``is_inference``
 _HAS_INFER_FLAG = {"TwoDimHandPoseWithFK", "Hand3DPoseNet",
                    "Hand3DPosePriorNetwork"}
 
 # where each model not yet ported stands in ROADMAP.md's queue 1
-_WAITING = {
-    "TwoDimHandPoseWithFK": "FK family",
-    "ThreeDimHandPose": "FK family",
-    "MANO3DHandPose": "MANO family",
-    "ThreeHandShapeAndPoseMANO": "MANO family",
-    "Resnet50MANO3DHandPose": "MANO family",
-    "DiffusionHandPose": "diffusion",
-}
+_WAITING = {"DiffusionHandPose": "diffusion"}
+
+
+def hook_geometry_inputs(model: nn.Module, given=None) -> dict:
+    """Forward hooks on the submodules an FK or MANO model's
+    ``geometry_inputs`` names, whose outputs enter its geometry: returns
+    {name: the module's own output}, filled on each call.  With ``given``
+    (such a dict, of tensors or arrays, e.g. from another device or
+    package) each module's output takes ``given``'s value exactly, with
+    its own gradient: a check can hold the inputs of the geometry, where
+    rounding is amplified, apart from the geometry itself."""
+    seen = {}
+
+    def substitute(out, value):
+        value = torch.as_tensor(value, device=out.device, dtype=out.dtype)
+        return value + (out - out.detach())
+
+    def hook(name):
+        def fn(module, args, out):
+            seen[name] = out
+            if given is None:
+                return None
+            if isinstance(out, tuple):
+                return tuple(map(substitute, out, given[name]))
+            return substitute(out, given[name])
+        return fn
+
+    for name in model.geometry_inputs:
+        getattr(model, name).register_forward_hook(hook(name))
+    return seen
+
+
+def mano_source_of(cfg: Config) -> Optional[str]:
+    """The MANO :func:`build_model` of ``cfg`` loads (a pickle's absolute
+    path or the synthetic stand-in), or None for a model without one."""
+    if cfg.model_name not in _NEEDS_MANO:
+        return None
+    return mano_source(cfg.mano_right_hand_path or None)
 
 
 def init_parameters(model: nn.Module, seed: int) -> nn.Module:
@@ -236,18 +451,25 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-def build_model(cfg: Config, is_inference: bool = False) -> nn.Module:
+def build_model(cfg: Config, is_inference: bool = False,
+                mano: Optional[ManoModel] = None) -> nn.Module:
     """Model registry keyed by ``cfg.model_name``; returns the model in
     eval mode in host memory, initialised from ``cfg.seed``.  Callers
-    move it with ``.to(resolve_device(device))``."""
+    move it with ``.to(resolve_device(device))``.  A MANO model takes
+    ``mano``, else :func:`load_mano` of ``cfg.mano_right_hand_path``
+    (the synthetic stand-in when no asset is found)."""
     if cfg.model_name not in MODEL_NAMES:
         raise ValueError(f"model_name {cfg.model_name!r} is not supported")
     if cfg.model_name not in _ZOO:
         raise NotImplementedError(
             f"{cfg.model_name} is not ported yet; it waits in ROADMAP.md "
             f"queue 1 ({_WAITING[cfg.model_name]})")
-    kw = ({"is_inference": is_inference}
-          if cfg.model_name in _HAS_INFER_FLAG else {})
+    kw = {}
+    if cfg.model_name in _NEEDS_MANO:
+        kw["mano"] = mano if mano is not None else load_mano(
+            cfg.mano_right_hand_path or None)
+    if cfg.model_name in _HAS_INFER_FLAG:
+        kw["is_inference"] = is_inference
     model = _ZOO[cfg.model_name](cfg, **kw)
     init_parameters(model, cfg.seed)
     return model.eval()

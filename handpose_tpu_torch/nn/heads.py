@@ -1,7 +1,12 @@
 """Prediction heads.
 
-Port of ``handpose_tpu/nn/heads.py:56-125``:
+Port of ``handpose_tpu/nn/heads.py``:
 
+* ``BoneAnglePrediction`` / ``BoneLengthPrediction``: float32 decay
+  MLPs to the FK layer's angles and bone lengths (reference
+  bonePrediction.py:49-108);
+* ``MANOBetasPrediction`` / ``MANOThetaPrediction``: sigmoid decay MLPs
+  to MANO's shape and pose parameters (reference MANOLayer.py:246-281);
 * ``Pose3dPrediction`` / ``ViewPointPrediction``: float32 decay MLPs on
   ResNet-50 features (reference PoseViewPointMLP.py:15-56);
 * ``PosePrior`` / ``ViewPoint``: a ResNet-18 trunk on the scoremap
@@ -19,6 +24,57 @@ from torch import nn
 from .layers import Dense
 from .mlp import DecayMLP
 from .resnet import ExtendedResNet18
+
+
+class BoneAnglePrediction(nn.Module):
+    """(B, D) -> (root_angles (B, 3), other_angles (B, 23))."""
+
+    def __init__(self, input_dim: int = 63, other_angles_num: int = 23):
+        super().__init__()
+        self.mlp1 = DecayMLP(input_dim, 3, divide=2, activation="LeakyReLU",
+                             use_sigmoid=False)
+        self.mlp2 = DecayMLP(input_dim, other_angles_num, divide=2,
+                             activation="LeakyReLU", use_sigmoid=False)
+
+    def forward(self, x: torch.Tensor):
+        return self.mlp1(x), self.mlp2(x)
+
+
+class BoneLengthPrediction(nn.Module):
+    """(B, D) -> (B, 20) bone lengths."""
+
+    def __init__(self, input_dim: int = 63, bone_length_num: int = 20):
+        super().__init__()
+        self.mlp1 = DecayMLP(input_dim, bone_length_num, divide=2,
+                             activation="LeakyReLU", use_sigmoid=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp1(x)
+
+
+class MANOBetasPrediction(nn.Module):
+    """(B, D) -> (B, beta_num) shape coefficients centred at 0."""
+
+    def __init__(self, input_dim: int, beta_num: int = 10):
+        super().__init__()
+        self.mlp = DecayMLP(input_dim, beta_num, divide=4, use_sigmoid=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp(x) - 0.5
+
+
+class MANOThetaPrediction(nn.Module):
+    """(B, D) -> (root_angles (B, 3) in +-pi, other (B, pose_num) in
+    +-pi/2)."""
+
+    def __init__(self, input_dim: int, pose_num: int = 10):
+        super().__init__()
+        self.mlp1 = DecayMLP(input_dim, 3, divide=4, use_sigmoid=True)
+        self.mlp2 = DecayMLP(input_dim, pose_num, divide=2, use_sigmoid=True)
+
+    def forward(self, x: torch.Tensor):
+        root = (self.mlp1(x) - 0.5) * 2.0 * math.pi
+        return root, (self.mlp2(x) - 0.5) * math.pi
 
 
 class Pose3dPrediction(nn.Module):

@@ -1,12 +1,13 @@
 """ResNet trunks with the reference's three stems.
 
-Port of ``handpose_tpu/nn/resnet.py:44-265``: ``BasicBlock`` and
+Port of ``handpose_tpu/nn/resnet.py:44-309``: ``BasicBlock`` and
 ``BottleneckBlock``, the generic ``ResNet`` (ResNet-18/34/50), the stems
 ``k3s2``, ``k3s2_s2d`` and ``k7s2``, ``ResNetFeatureExtractor``,
-``ExtendedResNet18`` and ``ExtendedResNet50``.  Submodules carry flax's
-names (``conv_init``, ``bn_init``, ``BasicBlock_i``/``BottleneckBlock_i``,
-``Conv_i``, ``BatchNorm_i``, ``conv_proj``, ``norm_proj``, ``fc``,
-``fc_proj``) so that ``convert.load_flax_variables`` maps a flax path to
+``ExtendedResNet18``, ``ExtendedResNet50`` and ``ResNetMano``.
+Submodules carry flax's names (``conv_init``, ``bn_init``,
+``BasicBlock_i``/``BottleneckBlock_i``, ``Conv_i``, ``BatchNorm_i``,
+``conv_proj``, ``norm_proj``, ``fc``, ``fc_proj``; ``conv1``/``conv11``
+and ``bn1`` in ``ResNetMano``) so that ``convert.load_flax_variables`` maps a flax path to
 a module path one-to-one.
 
 Layout: NCHW tensors, in ``channels_last`` memory where the caller
@@ -199,3 +200,52 @@ class ExtendedResNet50(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.trunk(x)
+
+
+class ResNetMano(nn.Module):
+    """The boukhayma-style trunk of ``ThreeHandShapeAndPoseMANO``
+    (``handpose_tpu/nn/resnet.py:268-309``, reference
+    resnetMANO.py:138-235): a 7x7/s2/p3 stem, ``BasicBlock`` x [3, 4, 6,
+    3] and an fc to the MANO parameter vector.
+
+    ``in_channels`` picks the stem: ``conv1`` on the first three channels
+    for 3, ``conv11`` for 24.  Only that one exists, as in the flax
+    module, which creates only the branch it takes.  The pool is the
+    reference's ``AvgPool2d(7)``: one output, the mean of the top-left
+    ``min(7, H, W)`` square of the final map (8x8 at crop 256, so its
+    last row and column are dropped).  The fc runs in float32.
+    """
+
+    def __init__(self, fc_dim: int, in_channels: int = 3,
+                 dtype: torch.dtype = torch.float32,
+                 bn_variance: str = "fast"):
+        super().__init__()
+        if in_channels not in (3, 24):
+            raise ValueError("input_channel should be 3 or 24")
+        norm = make_norm(bn_variance, dtype)
+        self.in_channels = in_channels
+        self.stem_name = "conv11" if in_channels == 24 else "conv1"
+        self.add_module(self.stem_name, Conv(in_channels, 64, 7, 2, 3, dtype))
+        self.bn1 = norm(64)
+        self.blocks = []
+        cin = 64
+        for i, block_count in enumerate([3, 4, 6, 3]):
+            for j in range(block_count):
+                stride = 2 if i > 0 and j == 0 else 1
+                block = BasicBlock(cin, 64 * 2 ** i, stride, dtype, norm)
+                self.add_module(f"BasicBlock_{len(self.blocks)}", block)
+                self.blocks.append(block)
+                cin = 64 * 2 ** i
+        self.fc = Dense(cin, fc_dim, torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, H, W) -> (B, fc_dim) float32."""
+        if self.in_channels == 3:
+            x = x[:, 0:3]
+        x = F.relu(self.bn1(getattr(self, self.stem_name)(x)))
+        x = stem_max_pool(x)
+        for block in self.blocks:
+            x = block(x)
+        win = min(7, x.shape[2], x.shape[3])
+        x = x[:, :, :win, :win].mean(dim=(2, 3)).to(torch.float32)
+        return self.fc(x)

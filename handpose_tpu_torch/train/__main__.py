@@ -8,6 +8,8 @@
     python -m handpose_tpu_torch.train --fake_data --fast_debug
     python -m handpose_tpu_torch.train --model OnlyThreeDimHandPose \\
         --data_root /data/RHD --batch_size 256
+    python -m handpose_tpu_torch.train --model Resnet50MANO3DHandPose \\
+        --data_root /data/RHD --set mano_right_hand_path=MANO_RIGHT.pkl
     python -m handpose_tpu_torch.train --from_run <run_dir> \\
         --resume <run_dir>/checkpoint
 
@@ -22,7 +24,10 @@ directory; ``--from_run`` takes the whole Config from a run's
 ``config.json``, and the dataset and path flags given explicitly, then
 ``--resume``, ``--set`` and ``--log_dir``, apply on top.  SIGTERM writes
 a checkpoint at the next step boundary and exits; resuming from it
-restarts the interrupted epoch.  Prints the best validation MPJPE.
+restarts the interrupted epoch.  The MANO models read ``MANO_RIGHT.pkl``
+from ``--set mano_right_hand_path=...``, ``$MANO_RIGHT_PKL`` or
+``config/mano/models/``, else a synthetic stand-in (named on stderr).
+Prints the best validation MPJPE.
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ from ..config import Config
 from ..data.pipeline import open_dataset, raw_device_batches
 from ..data.synthetic import fake_sample_batch
 from ..device import resolve_device
-from ..models import build_model
+from ..models import build_model, mano_source_of
 from ..utils.logging import RunLogger, StepStats, make_run_dir
 from .checkpoints import (filtered_resume, reconcile_schedule_count,
                           save_checkpoint)
@@ -115,8 +115,10 @@ class Worker:
             self.eval_step = make_eval_step(self.model, cfg)
             what = "fake batches"
         self.state = create_train_state(self.model, cfg, self.steps_per_epoch)
+        mano = mano_source_of(cfg)
         self.run_dir = run_dir if run_dir is not None else make_run_dir(
-            cfg.save_log_dir, cfg.model_name, cfg.dataset_name, cfg.to_json())
+            cfg.save_log_dir, cfg.model_name, cfg.dataset_name, cfg.to_json(),
+            provenance=None if mano is None else {"mano": mano})
         os.makedirs(self.run_dir, exist_ok=True)
         self.logger = RunLogger(self.run_dir)
         self.log_path = self.logger.log_path

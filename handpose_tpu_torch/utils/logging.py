@@ -22,9 +22,11 @@ from typing import Optional
 
 
 def make_run_dir(save_log_dir: str, model_name: str, dataset_name: str,
-                 config_json: Optional[str] = None) -> str:
+                 config_json: Optional[str] = None,
+                 provenance: Optional[dict] = None) -> str:
     """Create the run directory with ``config.json`` (``config_json``,
-    when given) and ``provenance.json``; returns its path."""
+    when given) and ``provenance.json`` (with ``provenance``'s entries);
+    returns its path."""
     ts = datetime.now().strftime("%Y-%m-%d-%H-%M-%S-%f")
     run_dir = os.path.join(save_log_dir, model_name, dataset_name,
                            f"run_{ts}")
@@ -32,7 +34,7 @@ def make_run_dir(save_log_dir: str, model_name: str, dataset_name: str,
     if config_json is not None:
         with open(os.path.join(run_dir, "config.json"), "w") as f:
             f.write(config_json)
-    _write_provenance(run_dir)
+    _write_provenance(run_dir, provenance or {})
     return run_dir
 
 
@@ -43,10 +45,10 @@ def _git(*args: str) -> str:
                           ).stdout.strip()
 
 
-def _write_provenance(run_dir: str) -> None:
-    """The time and, where the package lies in a git checkout, its
-    revision and whether the tree had changes."""
-    info = {"timestamp": datetime.now().isoformat()}
+def _write_provenance(run_dir: str, extra: dict) -> None:
+    """The time, ``extra`` and, where the package lies in a git checkout,
+    its revision and whether the tree had changes."""
+    info = {"timestamp": datetime.now().isoformat(), **extra}
     try:
         info["git_rev"] = _git("rev-parse", "HEAD")
         info["git_dirty"] = bool(_git("status", "--porcelain"))

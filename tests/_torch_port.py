@@ -6,6 +6,10 @@ the BatchNorm parameters and statistics redrawn from a numpy seed so that
 the weight transfer of every leaf is exercised.
 """
 
+import pickle
+import sys
+import types
+
 import numpy as np
 import torch
 
@@ -248,3 +252,39 @@ def interhand_raws(raw):
 
 AUG_FLAGS = ("coord_uv_noise", "hue_aug", "crop_center_noise",
              "crop_scale_noise", "crop_offset_noise", "scoremap_dropout")
+
+
+def write_mano_pickle(path, m):
+    """A MANO_RIGHT.pkl-like pickle of ``m``: the template pickled as a
+    chumpy ``Ch`` (what the licensed file embeds), the regressor as a
+    scipy CSC matrix, the kintree as MANO's (2, 16) table."""
+    import scipy.sparse
+
+    class Ch:
+        pass
+
+    Ch.__module__, Ch.__qualname__ = "chumpy.ch", "Ch"
+    fake = {"chumpy": types.ModuleType("chumpy"),
+            "chumpy.ch": types.ModuleType("chumpy.ch")}
+    fake["chumpy.ch"].Ch = Ch
+    saved = {k: sys.modules.pop(k, None) for k in
+             ("chumpy", "chumpy.ch", "chumpy.reordering")}
+    sys.modules.update(fake)
+    try:
+        template = Ch()
+        template.x = m.v_template.astype(np.float64)
+        ids = np.arange(16)
+        kt = np.stack([np.where(np.asarray(m.parents) < 0, 2 ** 32 - 1,
+                                m.parents), ids]).astype(np.int64)
+        dd = {"v_template": template, "shapedirs": m.shapedirs,
+              "posedirs": m.posedirs, "weights": m.weights,
+              "J_regressor": scipy.sparse.csc_matrix(m.J_regressor),
+              "hands_components": m.hands_components,
+              "hands_mean": m.hands_mean, "kintree_table": kt,
+              "f": np.arange(1538 * 3).reshape(1538, 3) % 778}
+        with open(path, "wb") as f:
+            pickle.dump(dd, f, protocol=2)
+    finally:
+        for k in fake:
+            sys.modules.pop(k, None)
+        sys.modules.update({k: v for k, v in saved.items() if v is not None})

@@ -9,8 +9,11 @@ metrics of every trainer.
 * ``train.steps.compute_losses`` for every model name against the JAX
   function on the same outputs and sample dict: the same terms, rtol
   1e-6, ``loss_uv`` unscaled and ``uv / 1e5`` in the total;
+* ``hand_mask_loss`` on uv out of int32's range or not finite, exactly
+  as the JAX function (its saturating cast, NaN to 0);
 * the eval metrics: ``TwoDimHandPose``'s MPJPE on uv and no PCK,
-  ``OnlyThreeDimHandPose``'s on xyz with PCK, against JAX's
+  ``OnlyThreeDimHandPose``'s and ``Resnet50MANO3DHandPose``'s on xyz
+  with PCK, against JAX's
   ``_eval_metrics`` (rtol 1e-6); ``Hand3DPoseNet``'s MPJPE on the
   canonical coords, its PCK on the absolute coordinates built with the
   JAX functions (the JAX step has none for trainer-B models).
@@ -128,6 +131,32 @@ def test_hand_mask_loss_clamps_u_by_width_and_v_by_height():
                                rtol=RTOL)
 
 
+def test_hand_mask_loss_takes_out_of_range_and_non_finite_uv_as_jax():
+    """uv of +-1e10, +-inf, NaN, +-3e9 and in-range values, on both axes
+    of predictions and labels: the port equals the JAX function exactly.
+    JAX's int32 cast saturates and sends NaN to 0 before the clamp (so
+    3e9 samples column W - 1); torch's own cast gives INT_MIN on the
+    host, which the clamp took to column 0."""
+    H, W = 40, 64
+    rng = np.random.default_rng(3)
+    mask = (rng.uniform(size=(B, H, W)) > 0.5).astype(np.float32)
+    mask[:, :, 0] = 0.0                 # column 0 and row 0 empty,
+    mask[:, 0, :] = 0.0                 # the last column and row full
+    mask[:, :, W - 1] = 1.0
+    mask[:, H - 1, :] = 1.0
+    odd = np.float32([1e10, -1e10, np.inf, -np.inf, np.nan, 3e9, -3e9,
+                      300.7, 12.5, -0.5, 39.99, 63.99, 7.0])
+    n = len(odd)
+    idx = np.arange(B * 21 * 2).reshape(B, 21, 2)
+    pred = odd[idx % n]
+    gt = rng.uniform(-5, 70, (B, 21, 2)).astype(np.float32)
+    gt[:, ::3] = odd[(idx[:, ::3] * 5 + 1) % n]
+    for p, g in ((pred, gt), (gt, pred)):
+        got = losses.hand_mask_loss(*map(torch.from_numpy, (p, g, mask)))
+        want = jlosses.hand_mask_loss(*map(jnp.asarray, (p, g, mask)))
+        assert float(got) == float(want), (float(got), float(want))
+
+
 def _outputs_and_batch(seed):
     """Model outputs with every field a loss can read, and a sample dict
     with every label, as numpy."""
@@ -201,6 +230,7 @@ def test_compute_losses_match_jax(model):
 
 
 @pytest.mark.parametrize("model", ["TwoDimHandPose", "OnlyThreeDimHandPose",
+                                   "Resnet50MANO3DHandPose",
                                    "Hand3DPoseNet"])
 def test_eval_metrics_match_jax(model):
     out, batch = _outputs_and_batch(seed=7)
@@ -214,7 +244,7 @@ def test_eval_metrics_match_jax(model):
                                    rtol=RTOL, err_msg=k)
     if model == "TwoDimHandPose":
         assert "pck_correct_sum" not in got and "pck_count" not in got
-    elif model == "OnlyThreeDimHandPose":
+    elif model in ("OnlyThreeDimHandPose", "Resnet50MANO3DHandPose"):
         assert "pck_correct_sum" in want
     else:
         # the JAX step has no PCK for trainer-B models; the port's is

@@ -154,8 +154,8 @@ def test_seeded_init_is_deterministic_and_he_scaled():
 
 def test_train_mode_and_other_models_wait_for_later_slices():
     """Train mode runs now (batch statistics; the running statistics
-    move); the FK, MANO and diffusion models still wait for later
-    slices, and a stem outside the three is refused."""
+    move); the diffusion model still waits for a later slice, and a
+    stem outside the three is refused."""
     cfg = Config(model_name=MODEL, input_channels=CH,
                  input_img_shape=(32, 32))
     model = build_model(cfg)
@@ -169,7 +169,7 @@ def test_train_mode_and_other_models_wait_for_later_slices():
     with pytest.raises(ValueError, match="pool_grad"):
         build_model(cfg.replace(pool_grad="scatter"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg.replace(model_name="ThreeDimHandPose"))
+        build_model(cfg.replace(model_name="DiffusionHandPose"))
     with pytest.raises(ValueError, match="resnet_stem"):
         build_model(cfg.replace(resnet_stem="k5s2"))
 

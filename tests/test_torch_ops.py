@@ -205,6 +205,24 @@ def test_scoremap_plain_vs_jax(size):
     assert (peak == 0).any() and (peak > 0.9).any()
 
 
+def test_scoremap_plain_takes_non_finite_and_huge_coords_as_jax():
+    """NaN, +-inf and coordinates past int32 on either axis: the host's
+    int32 cast differs from JAX's (INT_MIN against 0 or the saturated
+    edge), but every such coordinate lands outside ``0 < c < H - 1``
+    under both, so the maps are equal (all zero) to JAX's."""
+    coords, vis = _scoremap_cases()
+    bad = [np.nan, np.inf, -np.inf, 3e9, -3e9, 1e10]
+    for i, v in enumerate(bad):
+        coords[1, 2 * i] = (v, 30.0)
+        coords[1, 2 * i + 1] = (20.0, v)
+    vis[1] = True
+    ref = np.asarray(jax.jit(lambda c, v: jops.render_gaussian_maps(
+        c, (64, 48), 25.0, v))(coords, vis))
+    out = ops.render_gaussian_maps(T(coords), (64, 48), 25.0, T(vis)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-6)
+    assert not out[1, :2 * len(bad)].any()
+
+
 @pytest.mark.parametrize("size", [(64, 64), (64, 48)])
 def test_scoremap_plain_vs_pallas_interpret(size):
     coords, vis = _scoremap_cases()

@@ -95,5 +95,5 @@ def test_two_dim_model_reports_no_pck(seen_configs, capsys):
 @pytest.mark.parametrize("cli", [infer_cli, train_cli])
 def test_models_not_ported_yet_are_refused(cli, capsys):
     with pytest.raises(SystemExit):
-        cli.main(["--model", "ThreeDimHandPose", "--device", "cpu"])
-    assert "FK family" in capsys.readouterr().err
+        cli.main(["--model", "DiffusionHandPose", "--device", "cpu"])
+    assert "diffusion" in capsys.readouterr().err

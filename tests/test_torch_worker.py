@@ -120,4 +120,4 @@ def test_worker_defaults_to_the_card_and_waits_where_it_should(tree,
     with pytest.raises(ValueError, match="incompatible with training"):
         Worker(cfg.replace(scale_to_size=True), device="cpu")
     with pytest.raises(SystemExit):
-        main(["--model", "MANO3DHandPose", "--device", "cpu"])
+        main(["--model", "DiffusionHandPose", "--device", "cpu"])
