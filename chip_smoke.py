@@ -104,7 +104,28 @@
    inputs), and the Worker for one epoch of two steps with validation
    (K2 36 a step at the flagship's 5 shapes for ResNetMano, 53 for the
    ResNet-50 trunks; the loss terms of each model's gates);
-16. prints the ``kernels`` line (launches summed over every path; K2's
+16. diffusion phase: the sampler of DiffusionHandPose at full width
+   (Unet1D dim 64, mults 1/2/4/8, 256-d condition, T 400, DDIM 200),
+   float32, the main path's seeded model conditioned on its trunk's
+   features of the tree's images: ``Unet1D`` card vs host (plain and time-table modes, 1e-5);
+   the full DDIM ladder and a DDPM pass at T 20 from injected draws,
+   card vs host within twice the larger float32-vs-float64 distance of
+   the two devices plus 1e-5; hoisted against unhoisted at b32 (twice
+   the card's own float32-vs-float64 distance plus 1e-5); at b256 the
+   time of a pass and of a denoise step, the kernels a step launches and
+   their device time (``torch.profiler``), the device's busy share, and
+   a hoisted b32 pass;
+17. DiffusionHandPose at full width (3 channels, the ResNet-50 k3s2
+   trunk, bf16, the 200-step sampler on every forward) as 15 does:
+   serving (the Evaluator, ``serve``, its layers), the card against the
+   host in three parts (the sample; the bone heads on the host's sample;
+   the outputs from the host's bone heads; f32, b4 crop 64), and the
+   Worker for one epoch of two steps with validation (K1 once a step or
+   batch, K2 53 a step at the ResNet-50 shapes, K3 once a step; the
+   ``loss_xyz`` and ``loss_diffusion`` terms; the Evaluator on
+   model_best equal to the run's best; the sampler's share of the
+   forward);
+18. prints the ``kernels`` line (launches summed over every path; K2's
    time per step of the flagship, of ResNet-50 and of ResNetMano), the
    card line and, last, the result line.
 
@@ -113,6 +134,7 @@ without the package beside it, it exits non-zero before printing results.
 Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -172,6 +194,7 @@ RESNET50_MODELS = ("Hand3DPoseNet", "OnlyThreeDimHandPose",
 FK_MANO_MODELS = ("TwoDimHandPoseWithFK", "ThreeDimHandPose",
                   "MANO3DHandPose", "ThreeHandShapeAndPoseMANO",
                   "Resnet50MANO3DHandPose")
+DIFFUSION = "DiffusionHandPose"
 
 
 def check(ok, what):
@@ -192,14 +215,16 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters, hide_host=False):
-    """Mean time of ``fn`` over ``iters`` calls after one warm call, from
-    CUDA events.  With ``hide_host`` the card first spins for ~25 ms while
+def cuda_ms(fn, iters, hide_host=False, warm=True):
+    """Mean time of ``fn`` over ``iters`` calls after one warm call
+    (``warm=False``: none, for a call the caller has already made at
+    these shapes), from CUDA events.  With ``hide_host`` the card first spins for ~25 ms while
     the host queues the calls, so a kernel shorter than its launch's host
     work is timed on the device alone (the kernel phases); without it a
     chain of small host-paced ops is timed as a caller sees it (the
     layers)."""
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -647,10 +672,17 @@ def _counts():
     return (scoremap_cuda.KERNEL, moments_cuda.KERNEL, pool_bwd_cuda.KERNEL)
 
 
-def step_split(worker, raw):
+def step_split(worker, raw, sampler=None):
     """Layer times of one b256 step on the Worker's path (its
     augmentations drawn from its generator), device resident:
-    preprocessing, forward and loss, backward and Adam."""
+    preprocessing, forward and loss, backward and Adam, each the mean of
+    a few calls after a warm one.  A model with a sampler
+    (DiffusionHandPose) runs it under ``no_grad`` on every forward, ~4 s
+    a pass paced by the host, whose spread from call to call exceeds the
+    rest of the step: ``sampler`` is then (ms, sample) of a pass the
+    Worker's run timed; the layers are timed with that sample replayed
+    (the same heads, FK and losses, and no gradient either way), and its
+    time (``sampler_ms``) is added to the forward and the step."""
     from handpose_tpu_torch.data.preprocess import preprocess_fn_for
     from handpose_tpu_torch.infer.evaluator import serving_kwargs
     from handpose_tpu_torch.train import compute_losses
@@ -669,16 +701,27 @@ def step_split(worker, raw):
     def fwd_loss():
         with torch.no_grad():
             batch = prep()
-        out = _forward(model, batch, cfg, True)
+        out = _forward(model, batch, cfg, True, g)
         return compute_losses(out, batch, cfg)["loss"]
 
     with torch.no_grad():
         preprocess_ms = cuda_ms(prep, 5)
-    fwd_ms = cuda_ms(fwd_loss, 3)
-    step_ms = cuda_ms(lambda: worker.train_step(state, raw, generator=g), 3)
-    return {"step_ms": step_ms, "preprocess_ms": preprocess_ms,
-            "forward_ms": fwd_ms - preprocess_ms,
-            "backward_and_update_ms": step_ms - fwd_ms}
+    sampler_ms, replay = 0.0, contextlib.nullcontext()
+    if sampler is not None:
+        sampler_ms, sample = sampler
+        replay = mock.patch.object(model.diff_model, "sample",
+                                   lambda *a, **kw: sample)
+    with replay:
+        fwd_ms = cuda_ms(fwd_loss, 3) + sampler_ms
+        step_ms = cuda_ms(lambda: worker.train_step(state, raw, generator=g),
+                          3) + sampler_ms
+    split = {"step_ms": step_ms, "preprocess_ms": preprocess_ms,
+             "forward_ms": fwd_ms - preprocess_ms,
+             "backward_and_update_ms": step_ms - fwd_ms}
+    if sampler_ms:
+        split["sampler_ms"] = sampler_ms
+        split["sampler_share_of_forward"] = sampler_ms / split["forward_ms"]
+    return split
 
 
 def train_config(root, logs, **kw):
@@ -1436,11 +1479,156 @@ def card_vs_host_geometry(dev, root, model):
     return {"geometry_inputs": in_err, "outputs": errs}
 
 
+def _to(v, device, dtype):
+    """``v``'s tensors (also in tuples and dicts) on ``device``, the
+    floating ones cast to ``dtype``."""
+    if torch.is_tensor(v):
+        return v.to(device, dtype) if v.is_floating_point() else v.to(device)
+    if isinstance(v, dict):
+        return {k: _to(x, device, dtype) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return type(v)(_to(x, device, dtype) for x in v)
+    return v
+
+
+def card_vs_host_sampler(dev, host, card, run, what):
+    """A sampler on the card against the host, in two parts, so that the
+    rounding its steps amplify does not decide the check (a float32
+    sample's distance from float64 varies 1x-4x from one x_T to the next,
+    PERF.md §6).  ``host``/``card``: a float32 module holding the
+    ``Unet1D`` on each device; ``run(module, device, dtype)``: the
+    sampler's output on it, from injected draws.
+
+    1. The whole sampler in float64 (weights, time embedding, schedule,
+       loop, clip), card vs host <= 1e-9 of range: the card runs the
+       host's arithmetic, step for step.
+    2. Each denoiser call of the host's float64 run, replayed in float32
+       from its float64 inputs on both devices: card vs host within twice
+       the host's own float32-vs-float64 distance on that call plus 1e-5
+       of range (the Unet1D tolerance).
+
+    Returns the numbers and the float64 samples."""
+    import copy
+    from handpose_tpu_torch.nn.diffusion import Unet1D
+    unet_of = lambda m: next(u for u in m.modules() if isinstance(u, Unet1D))
+    leaves = lambda v: list(v.values()) if isinstance(v, dict) else [v]
+    host64, card64 = copy.deepcopy(host).double(), copy.deepcopy(card).double()
+    calls = []
+    hook = unet_of(host64).register_forward_hook(
+        lambda m, args, kwargs, out: calls.append((args, kwargs, out)),
+        with_kwargs=True)
+    with torch.no_grad():
+        h64 = run(host64, "cpu", torch.float64)
+        hook.remove()
+        c64 = run(card64, dev, torch.float64)
+    del host64, card64
+    f64_err = rel_err(h64, c64)
+    errs, excess = [], []
+    hu, cu = unet_of(host), unet_of(card)
+    f32 = torch.float32
+    with torch.no_grad():
+        for args, kwargs, out in calls:
+            h32 = hu(*_to(args, "cpu", f32), **_to(kwargs, "cpu", f32))
+            c32 = cu(*_to(args, dev, f32), **_to(kwargs, dev, f32))
+            for o, h, c in zip(leaves(out), leaves(h32), leaves(c32)):
+                errs.append(rel_err(h, c))
+                excess.append(errs[-1] - 2 * rel_err(o, h) - 1e-5)
+    check(f64_err <= 1e-9 and max(excess) <= 0,
+          f"{what} card vs host: float64 sample {f64_err:.3g} of range <= "
+          f"1e-9; the {len(calls)} denoiser calls of the host's float64 "
+          f"run in float32, worst {max(errs):.3g}, each <= 2 x the host's "
+          f"f32-vs-f64 on the call + 1e-5 (worst margin {-max(excess):.3g})")
+    return {"float64_sample": f64_err, "float32_calls": len(calls),
+            "float32_call_max": max(errs),
+            "float32_call_min_margin": -max(excess)}, h64, c64
+
+
+def card_vs_host_diffusion(dev, root):
+    """DiffusionHandPose's serving path, float32, TF32 off, b4 at crop 64,
+    the full T = 400 / S = 200 ladder ('auto' hoists at b4), on the card
+    and the host from one injected x_T, in parts held apart where
+    rounding is amplified: the trunk's features (the sampler's
+    condition) to 1e-4 of range; the sampler on the host's features by
+    :func:`card_vs_host_sampler` (the free-running float32 samples'
+    distance, and each device's from float64, reported); then, with the
+    host's sample given to the card, the bone heads' outputs (FK's
+    inputs) to 1e-4; then the outputs from the host's bone-head outputs
+    to 1e-4 (FK multiplies rounding in its inputs, as in
+    :func:`card_vs_host_geometry`)."""
+    from handpose_tpu_torch.data.rhd import RHDDataset
+    from handpose_tpu_torch.infer import load_serving_model, serve
+    from handpose_tpu_torch.models import hook_geometry_inputs
+    cfg = model_config(root, DIFFUSION, compute_dtype="float32",
+                       input_img_shape=(64, 64))
+    small = RHDDataset(root, "evaluation",
+                       cache_decoded=True).raw_batch(range(4))
+    x_T = torch.randn(4, 1, 63, generator=torch.Generator().manual_seed(7))
+
+    @contextlib.contextmanager
+    def pinned(model, device, cond=None, given=None):
+        """The model's sampler from x_T, on ``cond`` in place of its own
+        condition (or returning ``given``); yields the lists its
+        conditions and samples go to."""
+        sample, conds, seen = model.diff_model.sample, [], []
+
+        def fn(own, generator=None, **kw):
+            conds.append(own)
+            c = own if cond is None else cond.to(device)
+            out = (sample(c, init_noise=x_T.to(device)) if given is None
+                   else given.to(device))
+            seen.append(out)
+            return out
+
+        with mock.patch.object(model.diff_model, "sample", fn):
+            yield conds, seen
+
+    host_model = load_serving_model(cfg, device="cpu")
+    host_in = hook_geometry_inputs(host_model)
+    with pinned(host_model, "cpu") as (host_conds, host_samples):
+        host = serve(host_model, small, cfg, device="cpu")
+    host_feat, host_sample = host_conds[0], host_samples[0]
+    card_model = load_serving_model(cfg, device=dev)
+    with pinned(card_model, dev, cond=host_feat) as (card_feat, card_sample):
+        serve(card_model, small, cfg, device=dev)
+    feat_err = rel_err(host_feat, card_feat[0])
+    sampler, h64, c64 = card_vs_host_sampler(
+        dev, host_model.diff_model, card_model.diff_model,
+        lambda m, d, dt: m.sample(host_feat.to(d, dt),
+                                  init_noise=x_T.to(d, dt)),
+        f"{DIFFUSION} sampler, T 400 / S 200, b4")
+    sampler.update({"float32_sample": rel_err(host_sample, card_sample[0]),
+                    "host_float32_vs_float64": rel_err(h64, host_sample),
+                    "card_float32_vs_float64": rel_err(c64, card_sample[0])})
+    del card_model
+    given = load_serving_model(cfg, device=dev)
+    card_in = hook_geometry_inputs(given, host_in)
+    with pinned(given, dev, given=host_sample):
+        card = serve(given, small, cfg, device=dev)
+    in_err = max(rel_err(h, c) for h, c in zip(_flat_tensors(host_in),
+                                               _flat_tensors(card_in)))
+    errs = [rel_err(h, c) for h, c in zip(host, card)]
+    check(feat_err <= F32_RTOL and in_err <= F32_RTOL
+          and max(errs) <= F32_RTOL,
+          f"{DIFFUSION} card vs host path, f32, b4 crop 64: features "
+          f"{feat_err:.3g}, bone heads on the host's sample {in_err:.3g}, "
+          f"outputs from the host's bone heads {max(errs):.3g} of range "
+          f"<= {F32_RTOL}; free-running f32 samples "
+          f"{sampler['float32_sample']:.3g} apart (f32 vs f64: host "
+          f"{sampler['host_float32_vs_float64']:.3g}, card "
+          f"{sampler['card_float32_vs_float64']:.3g})")
+    return {"features": feat_err, "sampler": sampler,
+            "geometry_inputs": in_err, "outputs": errs}
+
+
 def model_serving_phase(dev, root, raw_host, model="Hand3DPoseNet"):
     """A model's serving path: the Evaluator over the split (one K1 launch
     a batch) and serve on one batch, device resident; the card against
     the host on a small float32 batch (for the FK and MANO models in two
-    parts, :func:`card_vs_host_geometry`); the layers' times."""
+    parts, :func:`card_vs_host_geometry`; a model with a sampler,
+    DiffusionHandPose, in three, :func:`card_vs_host_diffusion`); the
+    layers' times (for a sampler's model, whose forward runs 200 denoise
+    steps of host-paced launches, serve is the main path's call and the
+    forward is serve less preprocessing)."""
     from handpose_tpu_torch.data.preprocess import (model_input,
                                                     preprocess_batch)
     from handpose_tpu_torch.data.rhd import RHDDataset
@@ -1452,13 +1640,19 @@ def model_serving_phase(dev, root, raw_host, model="Hand3DPoseNet"):
     cfg = model_config(root, model)
     check(cfg.crop_size == 256 and cfg.compute_dtype == "bfloat16"
           and cfg.resnet_out_feature_dim == 1024 and cfg.resnet_stem == "k3s2"
-          and cfg.mano_pose_num == 10,
+          and cfg.mano_pose_num == 10 and cfg.condition_feat_dim == 256
+          and (cfg.num_timesteps, cfg.num_sampling_timesteps) == (400, 200),
           f"{model} at full width: crop 256, {cfg.input_channels} channels, "
-          "1024-d features, bf16 compute, k3s2 stem, MANO pose_num 10")
+          "1024-d features, bf16 compute, k3s2 stem, MANO pose_num 10; "
+          "diffusion: 256-d condition, T 400, DDIM 200")
     raw = raw_host.to(dev)
     ev = Evaluator(cfg, device=dev)
     server = load_serving_model(cfg, device=dev)
-    ev.evaluate(max_batches=1)                       # warm: cuDNN, allocator
+    # a sampler's pass is seconds of host work: no warm call (the
+    # diffusion phase ran its shapes), and serve timed on the main path
+    sampler = getattr(server, "stochastic", False)
+    if not sampler:
+        ev.evaluate(max_batches=1)                   # warm: cuDNN, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k1 = scoremap_cuda.KERNEL
@@ -1469,8 +1663,12 @@ def model_serving_phase(dev, root, raw_host, model="Hand3DPoseNet"):
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
     eval_launches = k1.launches
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
     xyz, uv = serve(server, raw, cfg, device=dev)
-    torch.cuda.synchronize()
+    end.record()
+    end.synchronize()
+    served_ms = start.elapsed_time(end)
     launches = k1.launches
     peak = torch.cuda.max_memory_allocated()
     n_batches = -(-N_SAMPLES // BATCH)
@@ -1489,6 +1687,8 @@ def model_serving_phase(dev, root, raw_host, model="Hand3DPoseNet"):
 
     if model in FK_MANO_MODELS:
         errs = card_vs_host_geometry(dev, root, model)
+    elif sampler:
+        errs = card_vs_host_diffusion(dev, root)
     else:
         cfg32 = cfg.replace(compute_dtype="float32")
         small = RHDDataset(root, "evaluation",
@@ -1511,12 +1711,17 @@ def model_serving_phase(dev, root, raw_host, model="Hand3DPoseNet"):
                      sample["keypoint_scale"], sample["keypoint_xyz_root"])
         trunk = trunk_of(server)
         layers = {
-            "serve_ms": cuda_ms(lambda: serve(server, raw, cfg, dev), 5),
             "preprocess_ms": cuda_ms(
                 lambda: preprocess_batch(raw, **serving_kwargs(cfg)), 5),
-            "forward_ms": cuda_ms(lambda: server(inp, K, sc, rt), 5),
-            "trunk_ms": cuda_ms(lambda: trunk(x), 5),
-        }
+            "trunk_ms": cuda_ms(lambda: trunk(x), 5)}
+        if sampler:            # the main path's serve call, timed above
+            layers["serve_ms"] = served_ms
+            layers["forward_ms"] = served_ms - layers["preprocess_ms"]
+        else:
+            layers["serve_ms"] = cuda_ms(lambda: serve(server, raw, cfg,
+                                                       dev), 5)
+            layers["forward_ms"] = cuda_ms(lambda: server(inp, K, sc, rt),
+                                           5)
         del sample, inp, x
     out = {"model": model, "input_channels": cfg.input_channels,
            "mpjpe_mm": mpjpe, "evaluator_img_per_s": N_SAMPLES / t_eval,
@@ -1568,11 +1773,30 @@ def model_training_phase(dev, root, raw_host, model, max_epoch=2):
         return state, losses
 
     worker.train_step = recording_step
+    # a sampler's passes in the training steps, timed where they run:
+    # (start, end, sample)
+    passes, timed = [], contextlib.nullcontext()
+    if getattr(worker.model, "stochastic", False):
+        sample = worker.model.diff_model.sample
+
+        def timed_sample(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = sample(*args, **kw)
+            end.record()
+            if worker.model.training:
+                passes.append((start, end, out))
+            return out
+
+        timed = mock.patch.object(worker.model.diff_model, "sample",
+                                  timed_sample)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    best = worker.run()
+    with timed:
+        best = worker.run()
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -1602,7 +1826,11 @@ def model_training_phase(dev, root, raw_host, model, max_epoch=2):
           f"{model} Evaluator on model_best: {ev_mpjpe!r} == the Worker's "
           f"best validation MPJPE {best!r}")
     worker.train_step = step
-    split = step_split(worker, raw_host.to(dev))
+    pass_ms = [start.elapsed_time(end) for start, end, _ in passes]
+    split = step_split(worker, raw_host.to(dev), (pass_ms[-1], passes[-1][2])
+                       if passes else None)
+    if passes:
+        split["sampler_ms_by_step"] = pass_ms
     med = float(np.median(worker.step_seconds[1:]))
     out = {"model": model, "input_channels": cfg.input_channels,
            "steps": steps, "epoch_losses": losses,
@@ -1614,10 +1842,12 @@ def model_training_phase(dev, root, raw_host, model, max_epoch=2):
            "max_memory_allocated_bytes": peak,
            "launches": dict(zip(("scoremap", "moments", "pool_bwd"),
                                 launches))}
+    sampler = ("" if "sampler_ms" not in split else
+               f" (sampler {split['sampler_ms']:.3f})")
     print(f"{model} training b{BATCH}: {BATCH / med:.1f} img/s (median step "
           f"{med * 1e3:.1f} ms after the first), step {split['step_ms']:.3f}"
           f" ms = preprocess {split['preprocess_ms']:.3f} + forward "
-          f"{split['forward_ms']:.3f} + backward and Adam "
+          f"{split['forward_ms']:.3f}{sampler} + backward and Adam "
           f"{split['backward_and_update_ms']:.3f}; validation MPJPE "
           f"{best:.4f}; peak {peak} B", flush=True)
     del worker
@@ -1701,6 +1931,178 @@ def fk_mano_phase(dev):
           f"hand_mask_loss on uv of +-1e10, +-inf, NaN, +-3e9: card "
           f"{card!r} == host {host!r}")
     out["hand_mask_loss_non_finite_uv"] = host
+    return out
+
+
+def _unet_flops(unet, *args):
+    """Multiply-add FLOPs (2 per MAC) of the convolutions and dense layers
+    of one ``Unet1D`` call on ``args``, counted from their output shapes
+    (the attention products, < 1% at these widths, left out)."""
+    from handpose_tpu_torch.nn.diffusion import ConvNd, Linear
+    total = []
+
+    def hook(module, inputs, out):
+        w = module.weight
+        total.append(2 * out.numel() * w[0].numel()
+                     if isinstance(module, ConvNd) else
+                     2 * out.numel() * w.shape[1])
+
+    handles = [m.register_forward_hook(hook) for m in unet.modules()
+               if isinstance(m, (ConvNd, Linear))]
+    with torch.no_grad():
+        unet(*args)
+    for h in handles:
+        h.remove()
+    return sum(total)
+
+
+def diffusion_phase(dev, root, raw_host):
+    """The sampler of DiffusionHandPose at full width (Unet1D dim 64,
+    mults 1/2/4/8, 63-long sequences, 256-d condition, T 400, DDIM S 200,
+    eta 0, cosine, pred_noise, clipped x0), float32: the seeded model of
+    the main path (``cfg.seed`` 0), conditioned on its bf16 trunk's
+    features of the tree's images.  (a) ``Unet1D`` b4 card vs host in the
+    plain and time-table modes, 1e-5 of range; (b) a DDPM pass at T 20,
+    b4, from an injected x_T and per-step noise, card vs host by
+    :func:`card_vs_host_sampler` (the full DDIM ladder is held so on the
+    model's path, :func:`card_vs_host_diffusion`); (c) hoist against no
+    hoist at b32 on the card, both passes timed once, held to each other
+    in float64 to 1e-9 of range; (d) at b256 (no hoist, as 'auto' picks)
+    the time of a pass and of a denoise step (CUDA events), the kernels
+    launched per denoise step and their device time
+    (``torch.profiler``), the device's busy share (that time over the
+    unprofiled pass: the profiler slows the host), the convolutions'
+    FLOPs against the float32 peak.  A pass is host-bound (~960 launches
+    a denoise step), so each is timed from one call."""
+    import copy
+    from torch.profiler import ProfilerActivity, profile
+    from handpose_tpu_torch.data.preprocess import (model_input,
+                                                    preprocess_batch)
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch.models import build_model
+    from handpose_tpu_torch.nn.diffusion import GaussianDiffusion1D
+
+    cfg = model_config(root, DIFFUSION)
+    net = build_model(cfg).to(dev)
+    with torch.no_grad():
+        sample = preprocess_batch(raw_host.to(dev), **serving_kwargs(cfg))
+        feat = net.features(model_input(sample, cfg.input_channels))
+    model = net.diff_model
+    del net, sample
+    out = {}
+    card_unet = model.unet
+    unet = copy.deepcopy(card_unet).cpu()
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(4, 63, 1, generator=g)
+    t = torch.randint(0, 400, (4,), generator=g)
+    c = feat[:4].cpu()
+    times = torch.tensor([399.0, 201.0, 0.0])
+    with torch.no_grad():
+        errs = [rel_err(unet(x, t, c), card_unet(x.to(dev), t.to(dev),
+                                                 c.to(dev)))]
+        tabs, ctabs = unet(None, times, c), card_unet(None, times.to(dev),
+                                                      c.to(dev))
+        errs += [rel_err(v, ctabs[k]) for k, v in tabs.items()]
+        errs.append(rel_err(
+            unet(x, t, c, time_tables={k: v[1] for k, v in tabs.items()}),
+            card_unet(x.to(dev), t.to(dev), c.to(dev),
+                      time_tables={k: v[1] for k, v in ctabs.items()})))
+    check(max(errs) <= 1e-5, f"Unet1D dim 64, b4, card vs host, plain and "
+          f"time-table modes: {max(errs):.3g} of range <= 1e-5")
+    out["unet_card_vs_host_rel"] = max(errs)
+
+    # ---- (b) DDPM at T 20 from injected draws, card vs host; the full
+    # DDIM ladder is held on the model's path (card_vs_host_diffusion)
+    gd = GaussianDiffusion1D(63, timesteps=20, sampling_timesteps=20)
+    x_T = torch.randn(4, 63, 1, generator=g)
+    noise = torch.randn(20, 4, 63, 1, generator=g)
+    ddpm = lambda u, d, dt: gd.sample(u, 4, c.to(d, dt),
+                                      init_noise=x_T.to(d, dt),
+                                      step_noise=noise.to(d, dt))
+    out["ddpm_T20"], _, _ = card_vs_host_sampler(
+        dev, unet, card_unet, ddpm, "DDPM T 20, b4, injected draws")
+
+    # ---- (c) hoisted vs unhoisted at b32 on the card: both routes timed
+    # (one call each, after one UNet call at these shapes), and held to
+    # each other in float64, where the routes' other orders of rounding
+    # stay far below the check
+    gc = torch.Generator(device=dev).manual_seed(12)
+    c32 = feat[:32]
+    x32 = torch.randn(32, 1, 63, generator=gc, device=dev)
+    with torch.no_grad():
+        card_unet(x32.transpose(1, 2), torch.zeros(32, dtype=torch.long,
+                                                   device=dev), c32)
+    samples, b32_ms = {}, {}
+    for hoist in (False, True):
+        model.sampler_hoist = hoist
+        b32_ms[hoist] = cuda_ms(lambda: samples.update({hoist: model.sample(
+            c32, init_noise=x32)}), 1, warm=False)
+    model64 = copy.deepcopy(model).double()
+    f64 = {}
+    for hoist in (False, True):
+        model64.sampler_hoist = hoist
+        f64[hoist] = model64.sample(c32.double(), init_noise=x32.double())
+    del model64
+    model.sampler_hoist = "auto"
+    err = rel_err(f64[False], f64[True])
+    check(model.hoists(32) and err <= 1e-9,
+          f"hoisted ('auto' at b32) vs unhoisted sampler on the card, "
+          f"float64: {err:.3g} of range <= 1e-9")
+    out.update({"hoist_vs_no_hoist_b32_float64_rel": err,
+                "hoist_vs_no_hoist_b32_float32_rel": rel_err(samples[False],
+                                                             samples[True])})
+
+    # ---- (d) the b256 pass, timed with few iterations ----
+    c256 = feat
+    x256 = torch.randn(BATCH, 1, 63, generator=gc, device=dev)
+    check(not model.hoists(BATCH) and model.hoists(32),
+          "'auto' hoists at b32 and not at b256")
+    flops = 200 * _unet_flops(model.unet, x256.transpose(1, 2),
+                              torch.zeros(BATCH, dtype=torch.long,
+                                          device=dev), c256)
+    # the FLOP count's UNet call ran these shapes: no warm pass
+    pass_ms = cuda_ms(lambda: model.sample(c256, init_noise=x256), 1,
+                      warm=False)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        final = model.sample(c256, init_noise=x256)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.count, getattr(e, "device_time_total",
+                                 getattr(e, "cuda_time_total", 0.0)))
+               for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    n_kernels = sum(n for n, us in kernels if us > 0)
+    kernel_ms = sum(us for _, us in kernels) / 1e3
+    check(n_kernels > 0 and kernel_ms > 0,
+          f"the profiler saw {n_kernels} kernels, {kernel_ms:.3f} ms, in a "
+          "b256 sampler pass")
+    check(tuple(final.shape) == (BATCH, 1, 63)
+          and bool(torch.isfinite(final).all()),
+          f"the b{BATCH} sample of the main path's sampler: finite "
+          f"(B, 1, 63)")
+    out.update({
+        "b256_pass_ms": pass_ms, "b256_denoise_step_ms": pass_ms / 200,
+        "b256_pass_img_per_s": BATCH / pass_ms * 1e3,
+        "b256_kernels_per_denoise_step": n_kernels / 200,
+        "b256_profiled_pass_wall_ms": wall_ms,
+        "b256_kernel_ms": kernel_ms,
+        "b256_device_busy_share": kernel_ms / pass_ms,
+        "b256_unet_gflop_per_pass": flops / 1e9,
+        "b256_f32_bound_ms": flops / F32_FLOPS * 1e3,
+        "b32_hoisted_pass_ms": b32_ms[True],
+        "b32_unhoisted_pass_ms": b32_ms[False]})
+    print(f"sampler b{BATCH}: {pass_ms:.1f} ms a pass ({pass_ms / 200:.3f} "
+          f"ms a denoise step; {n_kernels / 200:.0f} kernels a step, "
+          f"{kernel_ms:.1f} ms of kernels: device busy "
+          f"{kernel_ms / pass_ms:.1%} of an unprofiled pass, "
+          f"{kernel_ms / wall_ms:.1%} of the profiled one); "
+          f"{flops / 1e12:.2f} TFLOP a pass, f32 bound "
+          f"{flops / F32_FLOPS * 1e3:.1f} ms; b32 hoisted "
+          f"{b32_ms[True]:.1f} ms, unhoisted {b32_ms[False]:.1f} ms",
+          flush=True)
+    del model, feat
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1865,6 +2267,11 @@ def main():
                                         max_epoch=1)
             if model == "ThreeHandShapeAndPoseMANO":
                 mano_k2_shapes = shapes
+        diffusion = diffusion_phase(dev, root, raw_host)
+        diff_serving, k1_diff_serving = model_serving_phase(
+            dev, root, raw_host, DIFFUSION)
+        diff_training, diff_launches, _ = model_training_phase(
+            dev, root, raw_host, DIFFUSION, max_epoch=1)
     moments_per_step(k2, k2_shapes, training["steps"], "flagship")
     moments_per_step(k2, r50_k2_shapes,
                      r50_training["Hand3DPoseNet"]["steps"], "resnet50")
@@ -1880,27 +2287,32 @@ def main():
         **{f"{m}_training": r50_launches[m][0] for m in RESNET50_MODELS},
         "k7s2_step": stem_launches[0],
         **{f"{m}_serving": k1_fm_serving[m] for m in FK_MANO_MODELS},
-        **{f"{m}_training": fm_launches[m][0] for m in FK_MANO_MODELS}}
+        **{f"{m}_training": fm_launches[m][0] for m in FK_MANO_MODELS},
+        f"{DIFFUSION}_serving": k1_diff_serving,
+        f"{DIFFUSION}_training": diff_launches[0]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {
         "training": k2_train, "augmented_training": k2_aug,
         "interhand_training": k2_ih_train,
         **{f"{m}_training": r50_launches[m][1] for m in RESNET50_MODELS},
         "k7s2_step": stem_launches[1],
-        **{f"{m}_training": fm_launches[m][1] for m in FK_MANO_MODELS}}
+        **{f"{m}_training": fm_launches[m][1] for m in FK_MANO_MODELS},
+        f"{DIFFUSION}_training": diff_launches[1]}
     k2["launches"] = sum(k2["launches_by_path"].values())
     k3["launches_by_path"] = {
         "training": k3_train, "augmented_training": k3_aug,
         "interhand_training": k3_ih_train,
         **{f"{m}_training": r50_launches[m][2] for m in RESNET50_MODELS},
         "k7s2_step": stem_launches[2],
-        **{f"{m}_training": fm_launches[m][2] for m in FK_MANO_MODELS}}
+        **{f"{m}_training": fm_launches[m][2] for m in FK_MANO_MODELS},
+        f"{DIFFUSION}_training": diff_launches[2]}
     k3["launches"] = sum(k3["launches_by_path"].values())
     k3["launches_by_variant"] = training["pool_bwd_launches_by_variant"]
     for record in (decode, serving, training, augmented, preemption,
                    ih_serving, ih_training, r50_serving, stems,
                    *r50_training.values(), fk_mano, *fm_serving.values(),
-                   *fm_training.values()):
+                   *fm_training.values(), diffusion, diff_serving,
+                   diff_training):
         record["card"] = card
     print(json.dumps({"decode": decode}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
@@ -1919,6 +2331,9 @@ def main():
         print(json.dumps({"fk_mano_serving": fm_serving[model]}), flush=True)
         print(json.dumps({"fk_mano_training": fm_training[model]}),
               flush=True)
+    print(json.dumps({"diffusion": diffusion}), flush=True)
+    print(json.dumps({"diffusion_serving": diff_serving}), flush=True)
+    print(json.dumps({"diffusion_training": diff_training}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -104,8 +104,10 @@ class Config:
     bone_length_num: int = 20
     other_joint_angles_num: int = 23
     diffusion_sample_in_train: bool = True
+    # k steps of JAX's sampler scan per loop iteration: a lax.scan
+    # structure knob with no eager counterpart; the port ignores it
     sampler_unroll: int = 4
-    sampler_hoist: str = "auto"
+    sampler_hoist: str = "auto"       # 'auto' (B <= 32) | 'on' | 'off'
 
     # -- MANO --
     mano_right_hand_path: str = ""

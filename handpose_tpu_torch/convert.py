@@ -14,11 +14,14 @@ which :func:`flatten_variables` makes from the nested tree and
 gradients) as the same flat paths.  The port's modules carry flax's
 names, so every path names a module; the leaf maps as follows:
 
-* conv ``kernel`` (H, W, I, O) -> ``weight`` (O, I, H, W);
+* conv ``kernel`` (H, W, I, O) -> ``weight`` (O, I, H, W), and a 1-D
+  conv's (K, I, O) -> (O, I, K);
 * dense ``kernel`` (in, out) -> ``weight`` (out, in); ``bias`` -> ``bias``;
-* BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, and ``mean``/``var``
-  -> the ``running_mean``/``running_var`` buffers (flax keeps the biased
-  variance, which the port's BatchNorm reads as it is).
+* BatchNorm and GroupNorm ``scale``/``bias`` -> ``weight``/``bias``, and
+  BatchNorm's ``mean``/``var`` -> the ``running_mean``/``running_var``
+  buffers (flax keeps the biased variance, which the port's BatchNorm
+  reads as it is);
+* RMSNorm ``g`` -> ``g``, in flax's (1, 1, C) shape.
 
 Non-persistent buffers (the MANO layer's constants, which the JAX
 package keeps outside its variables) are neither filled nor exported.
@@ -32,19 +35,21 @@ import numpy as np
 import torch
 from torch import nn
 
+from .nn.diffusion import GroupNorm
 from .nn.norm import BatchNorm
 
 _LEAF = {
     ("params", "kernel"): "weight",
     ("params", "bias"): "bias",
     ("params", "scale"): "weight",
+    ("params", "g"): "g",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
 
 
 # torch name -> (collection, flax leaf); ``weight`` depends on the module
-_EXPORT = {"bias": ("params", "bias"),
+_EXPORT = {"bias": ("params", "bias"), "g": ("params", "g"),
            "running_mean": ("batch_stats", "mean"),
            "running_var": ("batch_stats", "var")}
 
@@ -64,6 +69,8 @@ def flatten_variables(tree: Mapping, prefix: str = "") -> dict:
 def _to_torch_layout(name: str, value: np.ndarray) -> np.ndarray:
     if name == "kernel" and value.ndim == 4:
         return value.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+    if name == "kernel" and value.ndim == 3:
+        return value.transpose(2, 1, 0)             # KIO -> OIK
     if name == "kernel" and value.ndim == 2:
         return value.T                              # (in, out) -> (out, in)
     return value
@@ -72,6 +79,8 @@ def _to_torch_layout(name: str, value: np.ndarray) -> np.ndarray:
 def _from_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
     if leaf == "kernel" and value.ndim == 4:
         return value.transpose(2, 3, 1, 0)          # OIHW -> HWIO
+    if leaf == "kernel" and value.ndim == 3:
+        return value.transpose(2, 1, 0)             # OIK -> KIO
     if leaf == "kernel" and value.ndim == 2:
         return value.T                              # (out, in) -> (in, out)
     return value
@@ -99,7 +108,8 @@ def load_flax_variables(model: nn.Module,
     filled = set()
     for path, value in flat.items():
         parts = path.split("/")
-        if len(parts) < 3 or (parts[0], parts[-1]) not in _LEAF:
+        # ``params/<leaf>`` is a leaf of the model's own top module
+        if len(parts) < 2 or (parts[0], parts[-1]) not in _LEAF:
             raise KeyError(f"{path}: not a params/ or batch_stats/ leaf the "
                            "port knows")
         name = ".".join(parts[1:-1] + [_LEAF[(parts[0], parts[-1])]])
@@ -131,8 +141,9 @@ def export_flax_variables(model: nn.Module, grads: bool = False) -> dict:
     for name, tensor in _variables(model, grads).items():
         module_path, _, attr = name.rpartition(".")
         if attr == "weight":
-            is_bn = isinstance(model.get_submodule(module_path), BatchNorm)
-            coll, leaf = "params", "scale" if is_bn else "kernel"
+            is_norm = isinstance(model.get_submodule(module_path),
+                                 (BatchNorm, GroupNorm))
+            coll, leaf = "params", "scale" if is_norm else "kernel"
         elif attr in _EXPORT:
             coll, leaf = _EXPORT[attr]
         else:

@@ -31,7 +31,6 @@ import argparse
 
 from ..config import (MODEL_NAMES, Config, apply_overrides,
                       default_input_channels)
-from ..models.zoo import _WAITING, _ZOO
 from .evaluator import Evaluator, model_name_from_path
 
 
@@ -72,9 +71,6 @@ def main(argv=None):
                  dataset_name=args.dataset, dataset_root_dir=args.data_root,
                  infer_batch_size=args.batch_size)
     cfg = apply_overrides(cfg, args.overrides)
-    if cfg.model_name not in _ZOO:
-        p.error(f"{cfg.model_name} is not ported yet; it waits in "
-                f"ROADMAP.md queue 1 ({_WAITING[cfg.model_name]})")
     ev = Evaluator(cfg, weights=args.weights, device=args.device)
     if not args.pck:
         mpjpe = ev.evaluate(max_batches=args.max_batches)

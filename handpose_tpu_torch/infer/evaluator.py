@@ -32,7 +32,8 @@ from ..data.synthetic import fake_sample_batch
 from ..device import resolve_device
 from ..models import build_model, mano_source_of
 from ..train.checkpoints import load_variables
-from ..train.steps import make_eval_step, make_fused_eval_step
+from ..train.steps import (make_eval_step, make_fused_eval_step,
+                           pass_draws)
 
 Weights = Union[str, Mapping[str, np.ndarray], None]
 DATASETS = ("RHD", "InterHand2.6M", "synthetic")
@@ -145,10 +146,11 @@ class Evaluator:
         joint is visible."""
         total = torch.zeros((), dtype=torch.float64, device=self.device)
         count = torch.zeros((), dtype=torch.float64, device=self.device)
+        draws = pass_draws(self.model, self.cfg, self.device)
         for bi, raw in enumerate(self.batches()):
             if max_batches is not None and bi >= max_batches:
                 break
-            metrics = self.eval_step(raw)
+            metrics = self.eval_step(raw, **draws)
             total += metrics["mpjpe_sum"].to(torch.float64)
             count += metrics["mpjpe_count"].to(torch.float64)
         return _mpjpe(float(total), float(count))
@@ -175,10 +177,11 @@ class Evaluator:
         correct = torch.zeros(ts.shape[0], dtype=torch.float64,
                               device=self.device)
         n = torch.zeros((), dtype=torch.float64, device=self.device)
+        draws = pass_draws(self.model, self.cfg, self.device)
         for bi, raw in enumerate(self.batches()):
             if max_batches is not None and bi >= max_batches:
                 break
-            m = step(raw)
+            m = step(raw, **draws)
             total += m["mpjpe_sum"].to(torch.float64)
             count += m["mpjpe_count"].to(torch.float64)
             if "pck_correct_sum" in m:

@@ -34,10 +34,17 @@ def serve(model, raw: RawBatch, cfg: Config,
     ``InterHandRawBatch``, of numpy arrays or
     tensors) on ``device`` (default: the card), where ``model`` lies.
     ``ThreeHandShapeAndPoseMANO`` has no uv (None) unless
-    ``cfg.network_regress_uv``."""
-    raw = raw.to(resolve_device(device))
+    ``cfg.network_regress_uv``.  A stochastic model (DiffusionHandPose)
+    draws from a generator seeded ``cfg.seed`` on every call, so serving
+    is deterministic as the JAX export's fixed ``PRNGKey(cfg.seed)``
+    makes it."""
+    dev = resolve_device(device)
+    raw = raw.to(dev)
     sample = preprocess_fn_for(raw)(raw, **serving_kwargs(cfg))
     inp = model_input(sample, cfg.input_channels)
+    kw = {}
+    if getattr(model, "stochastic", False):
+        kw["generator"] = torch.Generator(device=dev).manual_seed(cfg.seed)
     out = model(inp, sample["camera_intrinsic_matrix"],
-                sample["keypoint_scale"], sample["keypoint_xyz_root"])
+                sample["keypoint_scale"], sample["keypoint_xyz_root"], **kw)
     return out.xyz, out.uv

@@ -1,18 +1,21 @@
 """The model zoo on the JAX package's forward contract.
 
-Port of ``handpose_tpu/models/zoo.py``: every model but
-``DiffusionHandPose`` (M5), which waits in ROADMAP.md queue 1.  That is
+Port of ``handpose_tpu/models/zoo.py``, all ten models:
 ``Hand3DPosePriorNetwork`` (M10, the reference's default model), the
 ResNet-50 family ``TwoDimHandPose`` (M1), ``OnlyThreeDimHandPose`` (M4)
 and ``Hand3DPoseNet`` (M9), the FK family ``TwoDimHandPoseWithFK`` (M2)
-and ``ThreeDimHandPose`` (M3), and the MANO family ``MANO3DHandPose``
-(M6), ``ThreeHandShapeAndPoseMANO`` (M7) and ``Resnet50MANO3DHandPose``
-(M8) on the MANO layer :func:`build_model` loads.  Every model is called
-as
+and ``ThreeDimHandPose`` (M3), the diffusion model ``DiffusionHandPose``
+(M5), and the MANO family ``MANO3DHandPose`` (M6),
+``ThreeHandShapeAndPoseMANO`` (M7) and ``Resnet50MANO3DHandPose`` (M8)
+on the MANO layer :func:`build_model` loads.  Every model is called as
 
     model(img (B, H, W, C) NHWC, camera_intrinsic_matrix,
           index_root_bone_length, keypoint_xyz_root, pose_x0=None)
       -> ModelOutput
+
+A model whose forward draws random numbers (``stochastic = True``:
+``DiffusionHandPose``) also takes ``generator=`` and the draws the JAX
+package injects (``init_noise``, ``diff_t``, ``diff_noise``).
 
 ``model.train()`` selects train-mode BatchNorm (batch statistics,
 running statistics updated), ``model.eval()`` the running statistics:
@@ -29,11 +32,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..config import MODEL_NAMES, Config
+from ..config import Config
 from ..nn.fk import forward_kinematics
 from ..nn.heads import (BoneAnglePrediction, BoneLengthPrediction,
                         MANOBetasPrediction, MANOThetaPrediction, PosePrior,
                         Pose3dPrediction, ViewPoint, ViewPointPrediction)
+from ..nn.diffusion import DiffusionJointEstimation
 from ..nn.layers import Dense
 from ..nn.mano import ManoLayer, ManoModel, load_mano, mano_source
 from ..nn.mlp import DecayMLP
@@ -75,17 +79,18 @@ def _trunk_input(img: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 class _ResNet50Model(nn.Module):
-    """The ``resnet_extractor`` every ResNet-50 model of this slice opens
-    with: ``ResNetFeatureExtractor(cfg.resnet_out_feature_dim)``."""
+    """The ``resnet_extractor`` the ResNet-50 models open with:
+    ``ResNetFeatureExtractor(feat_dim)``, ``cfg.resnet_out_feature_dim``
+    unless given."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, feat_dim: Optional[int] = None):
         super().__init__()
         _check_pool_grad(cfg)
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
         self.resnet_extractor = ResNetFeatureExtractor(
-            cfg.input_channels, cfg.resnet_out_feature_dim, self.dtype,
-            cfg.resnet_stem, cfg.bn_mode)
+            cfg.input_channels, feat_dim or cfg.resnet_out_feature_dim,
+            self.dtype, cfg.resnet_stem, cfg.bn_mode)
 
     def features(self, img: torch.Tensor) -> torch.Tensor:
         return self.resnet_extractor(_trunk_input(img, self.dtype))
@@ -217,6 +222,61 @@ class OnlyThreeDimHandPose(_ResNet50Model):
         xyz = self.threeDimPoseEstimate(self.features(img)).reshape(B, -1, 3)
         uv = batch_project_xyz_to_uv(xyz, camera_intrinsic_matrix)
         return ModelOutput(xyz=xyz, uv=uv)
+
+
+class DiffusionHandPose(_ResNet50Model):
+    """M5: ResNet-50 condition features (``condition_feat_dim``) -> a
+    conditional DDIM sample of the 63-d pose -> bone angle and length
+    heads -> FK (reference DiffusionHandPose.py,
+    ``handpose_tpu/models/zoo.py:211-283``).
+
+    With ``pose_x0`` the denoiser's training loss is ``diffusion_loss``.
+    The sample runs on every forward, training included
+    (``cfg.diffusion_sample_in_train``, the reference's default); with
+    that off, training returns only ``diffusion_loss``.  The sample has no
+    gradient (every reference sampler is ``@torch.no_grad``; JAX's
+    ``stop_gradient``), so the UNet trains only through
+    ``diffusion_loss``.  Draws come from ``generator`` (the loss's t, then
+    its noise, then x_T) unless ``diff_t``, ``diff_noise`` or
+    ``init_noise`` inject them."""
+
+    geometry_inputs = ("bone_angle_pred_model", "bone_length_pred_model")
+    stochastic = True
+
+    def __init__(self, cfg: Config):
+        super().__init__(cfg, cfg.condition_feat_dim)
+        self.diff_model = DiffusionJointEstimation(
+            keypoint_num=cfg.keypoint_num,
+            condition_feat_dim=cfg.condition_feat_dim,
+            num_timesteps=cfg.num_timesteps,
+            num_sampling_timesteps=cfg.num_sampling_timesteps,
+            sampler_hoist={"auto": "auto", "on": True,
+                           "off": False}[cfg.sampler_hoist])
+        self.bone_angle_pred_model = BoneAnglePrediction()
+        self.bone_length_pred_model = BoneLengthPrediction()
+
+    def forward(self, img: torch.Tensor, camera_intrinsic_matrix=None,
+                index_root_bone_length=None, keypoint_xyz_root=None,
+                pose_x0=None, generator: Optional[torch.Generator] = None,
+                init_noise=None, diff_t=None, diff_noise=None
+                ) -> ModelOutput:
+        feat = self.features(img)
+        diffusion_loss = None
+        if pose_x0 is not None:
+            diffusion_loss = self.diff_model(pose_x0, feat, generator,
+                                             t=diff_t, noise=diff_noise)
+        if self.training and not self.cfg.diffusion_sample_in_train:
+            return ModelOutput(diffusion_loss=diffusion_loss)
+        with torch.no_grad():
+            coarse = self.diff_model.sample(feat, generator,
+                                            init_noise=init_noise)
+        coarse = coarse.reshape(coarse.shape[0], -1)           # (B, 63)
+        root_angles, other_angles = self.bone_angle_pred_model(coarse)
+        xyz, uv = forward_kinematics(
+            root_angles, other_angles, self.bone_length_pred_model(coarse),
+            camera_intrinsic_matrix, index_root_bone_length,
+            keypoint_xyz_root, self.cfg.joint_order_switched)
+        return ModelOutput(xyz=xyz, uv=uv, diffusion_loss=diffusion_loss)
 
 
 def _mano_fc_dim(cfg: Config) -> int:
@@ -387,6 +447,7 @@ _ZOO = {
     "TwoDimHandPoseWithFK": TwoDimHandPoseWithFK,
     "ThreeDimHandPose": ThreeDimHandPose,
     "OnlyThreeDimHandPose": OnlyThreeDimHandPose,
+    "DiffusionHandPose": DiffusionHandPose,
     "MANO3DHandPose": MANO3DHandPose,
     "ThreeHandShapeAndPoseMANO": ThreeHandShapeAndPoseMANO,
     "Resnet50MANO3DHandPose": Resnet50MANO3DHandPose,
@@ -399,9 +460,6 @@ _NEEDS_MANO = {"MANO3DHandPose", "ThreeHandShapeAndPoseMANO",
 # the models whose constructor takes ``is_inference``
 _HAS_INFER_FLAG = {"TwoDimHandPoseWithFK", "Hand3DPoseNet",
                    "Hand3DPosePriorNetwork"}
-
-# where each model not yet ported stands in ROADMAP.md's queue 1
-_WAITING = {"DiffusionHandPose": "diffusion"}
 
 
 def hook_geometry_inputs(model: nn.Module, given=None) -> dict:
@@ -458,12 +516,8 @@ def build_model(cfg: Config, is_inference: bool = False,
     move it with ``.to(resolve_device(device))``.  A MANO model takes
     ``mano``, else :func:`load_mano` of ``cfg.mano_right_hand_path``
     (the synthetic stand-in when no asset is found)."""
-    if cfg.model_name not in MODEL_NAMES:
-        raise ValueError(f"model_name {cfg.model_name!r} is not supported")
     if cfg.model_name not in _ZOO:
-        raise NotImplementedError(
-            f"{cfg.model_name} is not ported yet; it waits in ROADMAP.md "
-            f"queue 1 ({_WAITING[cfg.model_name]})")
+        raise ValueError(f"model_name {cfg.model_name!r} is not supported")
     kw = {}
     if cfg.model_name in _NEEDS_MANO:
         kw["mano"] = mano if mano is not None else load_mano(

@@ -37,7 +37,6 @@ import os
 
 from ..config import (MODEL_NAMES, Config, apply_overrides,
                       default_input_channels)
-from ..models.zoo import _WAITING, _ZOO
 from .trainer import Worker
 
 
@@ -118,9 +117,6 @@ def main(argv=None) -> float:
     args = p.parse_args(argv)
     cfg = _from_run(args) if args.from_run else _new_config(args)
     cfg = apply_overrides(cfg, args.overrides)
-    if cfg.model_name not in _ZOO:
-        p.error(f"{cfg.model_name} is not ported yet; it waits in "
-                f"ROADMAP.md queue 1 ({_WAITING[cfg.model_name]})")
     worker = Worker(cfg, weights=args.weights, device=args.device)
     # SIGTERM (preemption) -> a checkpoint at the next step boundary and a
     # clean exit; resuming restarts the interrupted epoch

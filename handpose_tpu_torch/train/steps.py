@@ -37,23 +37,54 @@ _TRAINER_B = ("Hand3DPoseNet", "Hand3DPosePriorNetwork")
 def _check_remat(cfg: Config):
     if cfg.remat:
         raise NotImplementedError(
-            "remat (activation recomputation) waits for ROADMAP.md queue 9 "
-            "(torch.utils.checkpoint)")
+            "remat (activation recomputation) waits for ROADMAP.md queue 1, "
+            "item 7 (torch.utils.checkpoint)")
 
 
-def _forward(model, batch: dict, cfg: Config, train: bool):
+def _draw_kwargs(model, batch: dict, generator, model_draws) -> dict:
+    """What a model that draws random numbers (``model.stochastic``)
+    takes besides its inputs: ``generator``, and the draws injected by
+    the batch's ``_inject_<name>`` entries (the JAX package's injection
+    surface, ``handpose_tpu/train/steps.py:50-56``) or by ``model_draws``
+    ({name: whole-batch tensor}).  Other models take nothing."""
+    if not getattr(model, "stochastic", False):
+        return {}
+    kw = {k[len("_inject_"):]: v for k, v in batch.items()
+          if k.startswith("_inject_")}
+    kw.update(model_draws or {})
+    return dict(kw, generator=generator)
+
+
+def _forward(model, batch: dict, cfg: Config, train: bool, generator=None,
+             model_draws: Optional[dict] = None):
     """The model on a preprocessed sample dict, in train mode (batch
-    statistics, running statistics updated) or eval mode."""
+    statistics, running statistics updated) or eval mode; a stochastic
+    model draws from ``generator`` unless its draws are injected."""
     model.train(train)
     inp = model_input(batch, cfg.input_channels)
     pose_x0 = batch["keypoint_xyz21_rel_normed"].reshape(inp.shape[0], 1, -1)
     return model(inp, batch["camera_intrinsic_matrix"],
-                 batch["keypoint_scale"], batch["keypoint_xyz_root"], pose_x0)
+                 batch["keypoint_scale"], batch["keypoint_xyz_root"], pose_x0,
+                 **_draw_kwargs(model, batch, generator, model_draws))
 
 
-def forward(model, batch: dict, cfg: Config):
+def forward(model, batch: dict, cfg: Config, generator=None,
+            model_draws: Optional[dict] = None):
     """The model on a preprocessed sample dict, eval mode."""
-    return _forward(model, batch, cfg, train=False)
+    return _forward(model, batch, cfg, False, generator, model_draws)
+
+
+def pass_draws(model, cfg: Config, device) -> dict:
+    """The eval step's keyword arguments for one pass over a split: for a
+    stochastic model, a generator on ``device`` seeded ``cfg.seed`` at the
+    pass's start.  The Worker's validation and the Evaluator both take
+    it, so a checkpoint's Evaluator gives the run's validation MPJPE
+    exactly (the JAX Worker draws validation from its running key, its
+    Evaluator from ``PRNGKey(0)``)."""
+    if not getattr(model, "stochastic", False):
+        return {}
+    return {"generator": torch.Generator(device=device).manual_seed(
+        cfg.seed)}
 
 
 def compute_losses(out, batch: dict, cfg: Config) -> Dict[str, torch.Tensor]:
@@ -125,28 +156,30 @@ def _split(data, k: int):
 
 
 def _accum_grads(grad_one: Callable, state: TrainState, data,
-                 k: int, draws: Optional[AugmentDraws] = None
+                 k: int, draws: Optional[AugmentDraws] = None,
+                 model_draws: Optional[dict] = None
                  ) -> Dict[str, torch.Tensor]:
     """Gradients over ``data`` into the parameters' ``.grad``, optionally
     over ``k`` sequential microbatches (``cfg.grad_accum``); returns the
     loss dict.
 
-    ``grad_one(data_i, draws_i)`` runs one microbatch's forward and
-    backward (adding its mean-loss gradient to ``.grad``) and returns its
-    losses.
+    ``grad_one(data_i, draws_i, model_draws_i)`` runs one microbatch's
+    forward and backward (adding its mean-loss gradient to ``.grad``) and
+    returns its losses.
     For ``k > 1`` the summed gradient is divided by ``k`` (the mean over
     microbatches), BatchNorm normalises per microbatch and its running
     statistics take momentum once per microbatch, and the loss dicts are
     averaged: the JAX function's semantics.  Injected augmentation
-    ``draws`` for the whole batch are cut along the batch axis with it;
+    ``draws`` and the model's injected ``model_draws`` for the whole
+    batch are cut along the batch axis with it;
     without them each microbatch draws its own, as the JAX step splits its
     key per microbatch."""
     state.optimizer.zero_grad(set_to_none=True)
     if k == 1:
-        return grad_one(data, draws)
-    parts = [grad_one(d, dr) for d, dr in
-             zip(_split(data, k), [None] * k if draws is None
-                 else draws.split(k))]
+        return grad_one(data, draws, model_draws)
+    parts = [grad_one(*a) for a in zip(
+        _split(data, k), [None] * k if draws is None else draws.split(k),
+        [None] * k if model_draws is None else _split(model_draws, k))]
     with torch.no_grad():
         for p in state.model.parameters():
             if p.grad is not None:
@@ -155,11 +188,13 @@ def _accum_grads(grad_one: Callable, state: TrainState, data,
             for key in parts[0]}
 
 
-def _grad_one_on(model, cfg: Config) -> Callable[[dict], dict]:
+def _grad_one_on(model, cfg: Config) -> Callable:
     """The gradient closure on a preprocessed sample dict (augmented, if
-    at all, when it was made: ``draws`` is always None here)."""
-    def grad_one(batch: dict, draws=None) -> dict:
-        losses = compute_losses(_forward(model, batch, cfg, True), batch, cfg)
+    at all, when it was made), ``grad_one(batch, generator=None,
+    model_draws=None)``."""
+    def grad_one(batch: dict, generator=None, model_draws=None) -> dict:
+        out = _forward(model, batch, cfg, True, generator, model_draws)
+        losses = compute_losses(out, batch, cfg)
         losses["loss"].backward()
         return {k: v.detach() for k, v in losses.items()}
 
@@ -167,13 +202,18 @@ def _grad_one_on(model, cfg: Config) -> Callable[[dict], dict]:
 
 
 def make_train_step(model, cfg: Config):
-    """``train_step(state, batch)`` on a preprocessed sample dict ->
-    ``(state, losses)``."""
+    """``train_step(state, batch, generator=None, model_draws=None)`` on
+    a preprocessed sample dict -> ``(state, losses)``; a stochastic
+    model draws from ``generator`` unless ``model_draws`` (or the batch's
+    ``_inject_*`` entries) give its draws."""
     _check_remat(cfg)
     grad_one = _grad_one_on(model, cfg)
 
-    def train_step(state: TrainState, batch: dict):
-        losses = _accum_grads(grad_one, state, batch, cfg.grad_accum)
+    def train_step(state: TrainState, batch: dict, generator=None,
+                   model_draws: Optional[dict] = None):
+        losses = _accum_grads(
+            lambda b, _, md: grad_one(b, generator, md), state, batch,
+            cfg.grad_accum, model_draws=model_draws)
         return state.apply_gradients(), losses
 
     return train_step
@@ -183,40 +223,45 @@ def _make_fused_grad_one(model, cfg: Config, preprocess_fn,
                          pp_kwargs: dict, aug_flags: Optional[dict] = None
                          ) -> Callable:
     """The raw-batch gradient closure of the fused step,
-    ``grad_one(raw, draws=None, generator=None)``: device preprocessing
-    with the augmentations of ``aug_flags`` that are on (no gradient:
-    labels and network input, the JAX step's ``stop_gradient``), then
-    forward and backward."""
+    ``grad_one(raw, draws=None, generator=None, model_draws=None)``:
+    device preprocessing with the augmentations of ``aug_flags`` that are
+    on (no gradient: labels and network input, the JAX step's
+    ``stop_gradient``), then forward and backward; augmentations, then
+    the model, draw from ``generator`` unless given their draws."""
     _check_remat(cfg)
     grad_one = _grad_one_on(model, cfg)
     flags = {k: True for k, v in (aug_flags or {}).items() if v}
 
-    def fused_grad_one(raw: RawBatch, draws=None, generator=None) -> dict:
+    def fused_grad_one(raw: RawBatch, draws=None, generator=None,
+                       model_draws=None) -> dict:
         fn = preprocess_fn or preprocess_fn_for(raw)
         with torch.no_grad():
             batch = fn(raw, **pp_kwargs, **flags, draws=draws,
                        generator=generator)
-        return grad_one(batch)
+        return grad_one(batch, generator, model_draws)
 
     return fused_grad_one
 
 
 def make_fused_train_step(model, cfg: Config, preprocess_fn,
                           pp_kwargs: dict, aug_flags: Optional[dict] = None):
-    """``train_step(state, raw, generator=None, draws=None)`` on a raw
-    batch -> ``(state, losses)``: preprocessing with the augmentations of
-    ``aug_flags`` that are on, forward, trainer-B loss, backward and the
-    Adam update.  The augmentations draw from ``generator`` (a
-    ``torch.Generator`` on the batch's device), or take ``draws`` for the
-    whole batch (the tests inject the JAX step's)."""
+    """``train_step(state, raw, generator=None, draws=None,
+    model_draws=None)`` on a raw batch -> ``(state, losses)``:
+    preprocessing with the augmentations of ``aug_flags`` that are on,
+    forward, loss, backward and the Adam update.  The augmentations and a
+    stochastic model draw from ``generator`` (a ``torch.Generator`` on
+    the batch's device), or take ``draws`` and ``model_draws``
+    ({``init_noise``, ``diff_t``, ``diff_noise``: whole-batch tensors})
+    for the whole batch (the tests inject the JAX step's)."""
     grad_one = _make_fused_grad_one(model, cfg, preprocess_fn, pp_kwargs,
                                     aug_flags)
 
     def train_step(state: TrainState, raw: RawBatch, generator=None,
-                   draws: Optional[AugmentDraws] = None):
+                   draws: Optional[AugmentDraws] = None,
+                   model_draws: Optional[dict] = None):
         losses = _accum_grads(
-            lambda r, d: grad_one(r, d, generator), state, raw,
-            cfg.grad_accum, draws)
+            lambda r, d, md: grad_one(r, d, generator, md), state, raw,
+            cfg.grad_accum, draws, model_draws)
         return state.apply_gradients(), losses
 
     return train_step
@@ -286,15 +331,16 @@ def _accum_eval(metrics_one: Callable, data, k: int
 
 def make_eval_step(model, cfg: Config,
                    pck_thresholds=None) -> Callable[[dict], dict]:
-    """``eval_step(batch)`` on a preprocessed sample dict -> the metrics
-    of :func:`make_fused_eval_step` (the fake-data path's validation)."""
-
-    def metrics_one(batch: dict) -> dict:
-        return _eval_metrics(forward(model, batch, cfg), batch, cfg,
-                             pck_thresholds)
+    """``eval_step(batch, generator=None)`` on a preprocessed sample dict
+    -> the metrics of :func:`make_fused_eval_step` (the fake-data path's
+    validation)."""
 
     @torch.inference_mode()
-    def eval_step(batch: dict) -> dict:
+    def eval_step(batch: dict, generator=None) -> dict:
+        def metrics_one(batch_i: dict) -> dict:
+            return _eval_metrics(forward(model, batch_i, cfg, generator),
+                                 batch_i, cfg, pck_thresholds)
+
         return _accum_eval(metrics_one, batch, cfg.grad_accum)
 
     return eval_step
@@ -303,20 +349,21 @@ def make_eval_step(model, cfg: Config,
 def make_fused_eval_step(model, cfg: Config, preprocess_fn,
                          pp_kwargs: dict, pck_thresholds=None
                          ) -> Callable[[RawBatch], dict]:
-    """``eval_step(raw)`` -> metrics dict of tensors on the batch's
-    device: the loss terms of :func:`compute_losses`, mpjpe, mpjpe_sum,
-    mpjpe_count (0-d) and, with ``pck_thresholds`` (T,) in metres and a
-    model with 3-D output, pck_correct_sum (T,) and pck_count, from the
-    same forward.  The model runs in eval mode (running statistics)."""
-
-    def metrics_one(raw_i: RawBatch) -> dict:
-        fn = preprocess_fn or preprocess_fn_for(raw_i)
-        batch = fn(raw_i, **pp_kwargs)
-        return _eval_metrics(forward(model, batch, cfg), batch, cfg,
-                             pck_thresholds)
+    """``eval_step(raw, generator=None)`` -> metrics dict of tensors on
+    the batch's device: the loss terms of :func:`compute_losses`, mpjpe,
+    mpjpe_sum, mpjpe_count (0-d) and, with ``pck_thresholds`` (T,) in
+    metres and a model with 3-D output, pck_correct_sum (T,) and
+    pck_count, from the same forward.  The model runs in eval mode
+    (running statistics); a stochastic model draws from ``generator``."""
 
     @torch.inference_mode()
-    def eval_step(raw: RawBatch) -> dict:
+    def eval_step(raw: RawBatch, generator=None) -> dict:
+        def metrics_one(raw_i: RawBatch) -> dict:
+            fn = preprocess_fn or preprocess_fn_for(raw_i)
+            batch = fn(raw_i, **pp_kwargs)
+            return _eval_metrics(forward(model, batch, cfg, generator),
+                                 batch, cfg, pck_thresholds)
+
         return _accum_eval(metrics_one, raw, cfg.grad_accum)
 
     return eval_step

@@ -8,7 +8,9 @@ batch_size, 1)``, a shuffled epoch order with the remainder dropped for
 training, pinned prefetch, the fused train step with the train-time
 augmentations (drawn on the card from one ``torch.Generator`` seeded
 ``cfg.seed + 17``), then validation over the whole split (trailing
-partial batch included) through the fused eval step; fake and synthetic
+partial batch included) through the fused eval step (a model that draws
+in its forward, DiffusionHandPose, trains on the Worker's generator and
+validates on one seeded ``cfg.seed`` afresh each pass); fake and synthetic
 data (10 steps an epoch of ``fake_sample_batch`` through the non-fused
 steps); ``fast_debug`` (3 iterations per epoch); the NaN abort; the run
 directory with its config and provenance, TensorBoard scalars,
@@ -40,7 +42,7 @@ from .checkpoints import (filtered_resume, reconcile_schedule_count,
 from .preemption import PreemptionGuard
 from .state import create_train_state
 from .steps import (make_eval_step, make_fused_eval_step,
-                    make_fused_train_step, make_train_step)
+                    make_fused_train_step, make_train_step, pass_draws)
 
 AUG_FLAGS = ("hue_aug", "coord_uv_noise", "crop_center_noise",
              "crop_scale_noise", "crop_offset_noise", "scoremap_dropout")
@@ -126,9 +128,13 @@ class Worker:
         self.step_seconds: list = []     # host time of each train step
         self.start_epoch = 0
         self.best_mpjpe = float(np.inf)
-        # the augmentations' draws, on the card (JAX: PRNGKey(seed + 17))
+        # the augmentations' and the model's training draws, on the card
+        # (JAX: PRNGKey(seed + 17))
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 17)
+        # a model that draws in its forward (DiffusionHandPose) takes the
+        # generator in training too
+        self.stochastic = getattr(self.model, "stochastic", False)
         self.preempt: Optional[PreemptionGuard] = None
         aug = [f for f, on in self.aug_flags.items() if on]
         self.logger.text(
@@ -188,7 +194,7 @@ class Worker:
             depth=max(cfg.prefetch_depth, 2))
 
     def _train_on(self, batch):
-        if self.fused:
+        if self.fused or self.stochastic:
             return self.train_step(self.state, batch,
                                    generator=self.generator)
         return self.train_step(self.state, batch)
@@ -223,6 +229,8 @@ class Worker:
         losses_acc: dict = {}
         mpjpe_sum = mpjpe_count = 0.0
         n = 0
+        draws = {} if is_train else pass_draws(self.model, self.cfg,
+                                               self.device)
         self.stats.input.tic()
         for idx, batch in enumerate(self._epoch_batches(split, epoch)):
             self.stats.input.toc()
@@ -238,7 +246,7 @@ class Worker:
                 self._finish_train_metrics(metrics, epoch, idx, losses_acc)
                 self.step_seconds.append(self.stats.step.toc())
             else:
-                metrics = self.eval_step(batch)
+                metrics = self.eval_step(batch, **draws)
                 mpjpe_sum += float(metrics["mpjpe_sum"])
                 mpjpe_count += float(metrics["mpjpe_count"])
                 self.stats.step.toc()

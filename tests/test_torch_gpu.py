@@ -319,10 +319,11 @@ def test_train_step_kernels_against_plain(cuda):
     assert float((diffs > 1e-3 * lr).float().mean()) <= 0.01
 
 
-def _step_routes(cfg, raw, routes):
+def _step_routes(cfg, raw, routes, **step_kw):
     """One fused train step of ``cfg``'s model from one seeded state per
     route ('kernel', 'plain', 'plain, rows reversed': the plain versions
-    with the BN moments' rows summed in reverse order): (losses, the
+    with the BN moments' rows summed in reverse order), ``step_kw`` (e.g.
+    a stochastic model's ``model_draws``) passed to each: (losses, the
     gradient as one vector, the kernels' launches) each."""
     import copy
     from unittest import mock
@@ -353,7 +354,7 @@ def _step_routes(cfg, raw, routes):
                 mock.patch.object(pooling, "_pool_bwd",
                                   pooling.max_pool_3x3s2p1_bwd
                                   if plain else pooling._pool_bwd):
-            _, losses = step(state, raw)
+            _, losses = step(state, raw, **step_kw)
         torch.cuda.synchronize()
         grad = torch.cat([state.optimizer.state[p]["exp_avg"].flatten()
                           for p in model.parameters()]) / 0.1

@@ -154,8 +154,8 @@ def test_seeded_init_is_deterministic_and_he_scaled():
 
 def test_train_mode_and_other_models_wait_for_later_slices():
     """Train mode runs now (batch statistics; the running statistics
-    move); the diffusion model still waits for a later slice, and a
-    stem outside the three is refused."""
+    move); a model name outside the zoo and a stem outside the three are
+    refused."""
     cfg = Config(model_name=MODEL, input_channels=CH,
                  input_img_shape=(32, 32))
     model = build_model(cfg)
@@ -168,8 +168,8 @@ def test_train_mode_and_other_models_wait_for_later_slices():
     assert not torch.equal(bn.running_mean, before)
     with pytest.raises(ValueError, match="pool_grad"):
         build_model(cfg.replace(pool_grad="scatter"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg.replace(model_name="DiffusionHandPose"))
+    with pytest.raises(ValueError, match="not supported"):
+        build_model(cfg.replace(model_name="DiffusionHandPoseV2"))
     with pytest.raises(ValueError, match="resnet_stem"):
         build_model(cfg.replace(resnet_stem="k5s2"))
 

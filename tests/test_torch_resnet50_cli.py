@@ -10,7 +10,7 @@
   (defaults: 3 for the ResNet-50 models, 21 for the flagship);
 * ``TwoDimHandPose`` has no 3-D output: ``--pck`` reports a zero PCK
   curve and AUC 0, as the JAX ``evaluate_full`` does;
-* a model that is not ported yet is refused by both CLIs.
+* a model outside the zoo is refused by both CLIs.
 """
 
 import glob
@@ -94,6 +94,9 @@ def test_two_dim_model_reports_no_pck(seen_configs, capsys):
 
 @pytest.mark.parametrize("cli", [infer_cli, train_cli])
 def test_models_not_ported_yet_are_refused(cli, capsys):
+    """Every zoo model is ported: a name outside the zoo is refused by
+    argparse, which lists the ten choices."""
     with pytest.raises(SystemExit):
-        cli.main(["--model", "DiffusionHandPose", "--device", "cpu"])
-    assert "diffusion" in capsys.readouterr().err
+        cli.main(["--model", "DiffusionHandPoseV2", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "invalid choice" in err and "DiffusionHandPose" in err

@@ -121,7 +121,8 @@ def test_grad_accum_cuts_injected_draws_with_the_batch():
     raw batch, one slice per microbatch."""
     seen = []
 
-    def grad_one(data, draws):
+    def grad_one(data, draws, model_draws):
+        assert model_draws is None
         seen.append((data, draws))
         return {"loss": torch.zeros(())}
 

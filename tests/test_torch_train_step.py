@@ -156,7 +156,7 @@ def test_remat_waits_for_queue_9():
     _, cfg = train_cfgs(CROP, remat=True)
     model, _ = torch_train_state(flax_weights(32), cfg.replace(
         input_img_shape=(32, 32)), SPE)
-    with pytest.raises(NotImplementedError, match="queue 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         make_fused_train_step(model, cfg, preprocess_batch, pp_kwargs(32))
 
 

@@ -115,9 +115,9 @@ def test_worker_defaults_to_the_card_and_waits_where_it_should(tree,
                   f"save_log_dir={tmp_path}"])
     with pytest.raises(ValueError, match="not in"):
         Worker(cfg.replace(dataset_name="COCO"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         Worker(cfg.replace(remat=True), device="cpu")
     with pytest.raises(ValueError, match="incompatible with training"):
         Worker(cfg.replace(scale_to_size=True), device="cpu")
     with pytest.raises(SystemExit):
-        main(["--model", "DiffusionHandPose", "--device", "cpu"])
+        main(["--model", "DiffusionHandPoseV2", "--device", "cpu"])

@@ -9,38 +9,26 @@ width, bf16, seeded weights) on a device-resident synthetic RHD batch
 under ``torch.profiler`` and prints the card's name and power limit, the
 device kernel time grouped by kind (convolution, elementwise, ...), the
 top kernels by device time, and the device's busy share of the wall
-time.  The last line is one JSON object with those numbers.  Needs a
-card; imports nothing of JAX.
+time.  For DiffusionHandPose one sampler pass on the batch's features is
+also profiled alone and reported as its own kind, taken out of the
+others, with its busy share and kernels per denoise step.  The last line
+is one JSON object with those numbers.  Needs a card; imports nothing of
+JAX.
 """
 
 import argparse
 import json
-import subprocess
 import sys
 import tempfile
-import time
-from collections import defaultdict
 from pathlib import Path
 
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-# kernel-name fragments -> kind, first match wins
-KINDS = (("scoremap", "scoremap (K1)"),
-         ("conv", "convolution"), ("cudnn", "convolution"),
-         ("sm90_xmma", "convolution"), ("implicit", "convolution"),
-         ("gemm", "matmul"), ("cutlass", "matmul"), ("Memcpy", "copy"),
-         ("Memset", "copy"), ("gather", "gather"), ("reduce", "reduction"),
-         ("max_pool", "max pool"), ("elementwise", "elementwise"),
-         ("vectorized", "elementwise"), ("unrolled", "elementwise"))
-
-
-def kind_of(name: str) -> str:
-    for frag, kind in KINDS:
-        if frag.lower() in name.lower():
-            return kind
-    return "other"
+from torch_profiling import (card_line, profiled, report,  # noqa: E402
+                             with_sampler_kind)
 
 
 def main():
@@ -51,16 +39,16 @@ def main():
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available")
-    from torch.profiler import ProfilerActivity, profile
 
     from handpose_tpu_torch import Config
     from handpose_tpu_torch.config import default_input_channels
+    from handpose_tpu_torch.data.preprocess import (model_input,
+                                                    preprocess_batch)
     from handpose_tpu_torch.data.rhd import RHDDataset, write_synthetic_rhd
     from handpose_tpu_torch.infer import load_serving_model, serve
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     dev = torch.device("cuda")
     cfg = Config(model_name=args.model,
                  input_channels=default_input_channels(args.model))
@@ -71,48 +59,39 @@ def main():
     model = load_serving_model(cfg, device=dev)
     for _ in range(2):
         serve(model, raw, cfg, dev)
-    torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            serve(model, raw, cfg, dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    by_kind = defaultdict(float)
-    kernels = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total",
-                         getattr(evt, "cuda_time_total", 0.0))
-        if evt.device_type.name != "CUDA" or dev_us <= 0:
-            continue
-        kernels.append((dev_us / args.iters / 1e3, evt.count // args.iters,
-                        evt.key))
-        by_kind[kind_of(evt.key)] += dev_us / args.iters / 1e3
-    kernels.sort(reverse=True)
-    busy_ms = sum(ms for ms, _, _ in kernels)
-    step_ms = wall_ms / args.iters
-    busy_share = busy_ms / step_ms
-    print(f"card: {card}")
-    print(f"{args.model} serve b{args.batch}: {step_ms:.3f} ms wall per "
-          "step, "
-          f"{busy_ms:.3f} ms device kernel time")
-    if busy_share > 1:
-        print(f"note: kernel time exceeds wall time ({busy_share:.3f}): "
-              "kernels overlapped on several streams, or the profiler "
-              "counted some twice")
-    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        print(f"  {kind:16s} {ms:9.3f} ms  {ms / busy_ms:6.1%}")
-    print("top kernels (ms per step, launches per step):")
-    for ms, n, name in kernels[:15]:
-        print(f"  {ms:8.3f} {n:5d}  {name[:100]}")
-    print(json.dumps({
-        "card": card, "model": args.model, "batch": args.batch,
-        "step_ms": step_ms, "device_kernel_ms": busy_ms,
-        "device_busy_share": busy_share,
-        "by_kind_ms": dict(by_kind)}))
+    run = profiled(lambda: serve(model, raw, cfg, dev), args.iters)
+    by_kind = run["by_kind_ms"]
+    out = {"card": card, "model": args.model, "batch": args.batch,
+           "step_ms": run["wall_ms"], "device_kernel_ms": run["kernel_ms"],
+           "device_busy_share": run["kernel_ms"] / run["wall_ms"],
+           "kernels_per_step": run["launches"]}
+    sampler = None
+    if hasattr(model, "diff_model"):
+        with torch.inference_mode():
+            sample = preprocess_batch(raw, **serving_kwargs(cfg))
+            feat = model.features(model_input(sample, cfg.input_channels))
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+            sampler = profiled(lambda: model.diff_model.sample(feat, gen), 1)
+        by_kind = with_sampler_kind(run, sampler)
+        steps = cfg.num_sampling_timesteps
+        out.update({
+            "sampler_pass_ms": sampler["wall_ms"],
+            "sampler_kernel_ms": sampler["kernel_ms"],
+            "sampler_busy_share": sampler["kernel_ms"] / sampler["wall_ms"],
+            "sampler_kernels_per_denoise_step": sampler["launches"] / steps,
+            "sampler_share_of_step_kernel_ms":
+                sampler["kernel_ms"] / run["kernel_ms"],
+            "sampler_by_kind_ms": sampler["by_kind_ms"]})
+    report(f"{args.model} serve b{args.batch} (per call)", card, run,
+           by_kind, 15)
+    if sampler is not None:
+        print(f"sampler pass alone: {sampler['wall_ms']:.3f} ms wall, "
+              f"{sampler['kernel_ms']:.3f} ms kernels "
+              f"({out['sampler_busy_share']:.1%} busy), "
+              f"{out['sampler_kernels_per_denoise_step']:.0f} kernels a "
+              "denoise step")
+    out["by_kind_ms"] = by_kind
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":
