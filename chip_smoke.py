@@ -57,6 +57,25 @@
 8. preemption phase: a request inside step 3 pins the checkpoint to
    epoch 1, and a Worker resumed from it restarts epoch 1 from the
    preempted state (bit-equal) and runs it to the end;
+8a. export phase: the flagship's fused serving program (full width, b256,
+   seeded init) exported with ``torch.export`` on the card and saved;
+   a process that imports only torch, numpy and the port's ops loads it,
+   finds one call of K1's operator, launches K1 once a call, and its
+   (xyz, uv) equal eager ``serve`` on the same raw batch to 1e-6 of
+   range; export and load seconds, artifact bytes, and the loaded
+   program's b256 rate beside eager serving's (median of 25 calls);
+   DiffusionHandPose's forward exported at b8 on its default ladder
+   (T 400, DDIM 200) and held to ``serve`` to 1e-5 of range;
+8b. ops phase: the ops library that no path calls (camera conversions,
+   projections, ``flip_right_hand``, ``bone_rel_trafo_inv``, the 3-D
+   heatmap, the affine warp at 64 x 256 x 256 x 3, the heatmap-space
+   transform), card vs host, 1e-6 of range (the warp 1e-5);
+8c. inference CLI phase: ``python -m handpose_tpu_torch.infer``'s main
+   with ``--from_run`` on the augmented run, with ``--pck`` and then
+   with ``--visualize_dir`` (each == the run's best MPJPE exactly; the 8
+   overlays decode at the crop's size), and ``--export`` (loads, runs);
+8d. profile phase: a fast_debug Worker with ``profile_epoch=0`` writes a
+   chrome trace under ``run_dir/profile/`` naming K1, K2 and K3;
 9. InterHand2.6M serving phase: a synthetic tree of 2 x 520 JPEG frames
    of 512x334, one in four 334x512 (``pad_to="auto"`` pads them to
    512x512); the val split's cache (timed) and its JPEG decode rate; K1
@@ -125,7 +144,8 @@
    ``loss_xyz`` and ``loss_diffusion`` terms; the Evaluator on
    model_best equal to the run's best; the sampler's share of the
    forward);
-18. prints the ``kernels`` line (launches summed over every path; K2's
+18. prints the ``kernels`` line (launches summed over every path, the
+   exported program's one launch a call among them; K2's
    time per step of the flagship, of ResNet-50 and of ResNetMano), the
    card line and, last, the result line.
 
@@ -943,7 +963,9 @@ def augmented_training_phase(dev, root, raw_host, plain):
     epochs, its launches and the draws' statistics; then its checkpoint
     (write time, size), a second Worker resumed from it (bit-equal
     state), the Evaluator on model_best (equal to the best validation
-    MPJPE); then the step's layer times beside the plain step's."""
+    MPJPE); then the step's layer times beside the plain step's.  Returns
+    the run directory (``config.json``, ``checkpoint/``, ``model_best/``)
+    besides its record and launches."""
     import os
     from handpose_tpu_torch.data import preprocess as pp_mod
     from handpose_tpu_torch.infer import Evaluator
@@ -974,7 +996,8 @@ def augmented_training_phase(dev, root, raw_host, plain):
         write_s.append(time.perf_counter() - t0)
 
     # ---- the main path: the augmented Worker, two epochs ----
-    worker = Worker(cfg, run_dir=logs, device=dev)
+    worker = Worker(cfg, device=dev)
+    run = worker.run_dir
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1002,9 +1025,9 @@ def augmented_training_phase(dev, root, raw_host, plain):
           f"{uv_std:.4f} = 2.5 +- 0.05 px ({int(stats['uv_n'])} draws)")
 
     # ---- checkpoint, resume, Evaluator on model_best ----
-    ckpt = os.path.join(logs, "checkpoint")
-    sizes = {d: sum(os.path.getsize(os.path.join(logs, d, f))
-                    for f in os.listdir(os.path.join(logs, d)))
+    ckpt = os.path.join(run, "checkpoint")
+    sizes = {d: sum(os.path.getsize(os.path.join(run, d, f))
+                    for f in os.listdir(os.path.join(run, d)))
              for d in ("checkpoint", "model_best")}
     check(len(write_s) == 2 and all(sizes.values()),
           f"checkpoint/ and model_best/ written at each epoch's end: "
@@ -1022,7 +1045,7 @@ def augmented_training_phase(dev, root, raw_host, plain):
           f"resumed Worker: start_epoch {resumed.start_epoch} == 2, schedule "
           f"count {resumed.state.step} == 2 x 2")
     del resumed
-    ev_mpjpe = Evaluator(cfg, weights=os.path.join(logs, "model_best"),
+    ev_mpjpe = Evaluator(cfg, weights=os.path.join(run, "model_best"),
                          device=dev).evaluate()
     check(ev_mpjpe == best, f"Evaluator on model_best: {ev_mpjpe!r} mm == "
           f"the Worker's best validation MPJPE {best!r}")
@@ -1054,7 +1077,7 @@ def augmented_training_phase(dev, root, raw_host, plain):
           f"s; peak {peak} B", flush=True)
     del worker
     torch.cuda.empty_cache()
-    return augmented, launches
+    return augmented, launches, run
 
 
 def preemption_phase(dev, root):
@@ -2174,6 +2197,373 @@ def stems_phase(dev, root, raw_host):
             "k7s2_step_losses": losses}, launches
 
 
+# ---------------------------------------------------------------------------
+# serving artifacts: export, the ops library, the inference CLI, profiling
+
+# the loading process of the export phase: torch, numpy and the port's ops
+# (which register the scoremap operator), nothing else of the package
+_SERVE_ARTIFACT = r"""
+import json, statistics, sys, time
+import numpy as np
+import torch
+import handpose_tpu_torch.ops
+from handpose_tpu_torch.ops import scoremap_cuda
+artifact, inputs, out_path, iters = sys.argv[1:5]
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+t0 = time.perf_counter()
+program = torch.export.load(artifact)
+fn = program.module()
+load_s = time.perf_counter() - t0
+op = torch.ops.handpose_tpu_torch.render_gaussian_maps.default
+calls = sum(n.target == op for n in program.graph.nodes)
+args = [a.cuda() for a in torch.load(inputs)]
+with torch.no_grad():
+    scoremap_cuda.KERNEL.launches = 0
+    xyz, uv = fn(*args)
+    torch.cuda.synchronize()
+    launches = scoremap_cuda.KERNEL.launches
+    torch.save({"xyz": xyz.cpu(), "uv": uv.cpu()}, out_path)
+    for _ in range(3):
+        fn(*args)
+    ms, host_ms = [], []
+    for _ in range(int(iters)):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        fn(*args)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+print(json.dumps({"load_s": load_s, "op_calls": calls, "launches": launches,
+                  "ms": ms, "median_ms": statistics.median(ms),
+                  "host_median_ms": statistics.median(host_ms),
+                  "modules": sorted(m for m in sys.modules
+                                    if m.startswith("handpose_tpu"))}))
+"""
+SERVE_ITERS = 25
+
+
+def median_call_ms(fn, iters=SERVE_ITERS, warm=3):
+    """(median, the host's median) over ``iters`` calls of ``fn`` after
+    ``warm`` calls: each call timed with CUDA events, and the host's time
+    to enqueue it (the call's return, before the card finishes)."""
+    for _ in range(warm):
+        fn()
+    ms, host_ms = [], []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return float(np.median(ms)), float(np.median(host_ms))
+
+
+def export_phase(dev, root, raw_host):
+    """The flagship's fused serving program exported at full width and
+    b256 on the card, saved, then loaded and run in a process that
+    imports only torch, numpy and the port's ops: one K1 launch a call,
+    its (xyz, uv) equal to eager ``serve`` on the same raw batch, its b256
+    rate beside eager's; then DiffusionHandPose's forward at b8 on its
+    default ladder, held to ``serve``."""
+    from handpose_tpu_torch import Config
+    from handpose_tpu_torch.data.preprocess import (RawBatch, model_input,
+                                                    preprocess_batch)
+    from handpose_tpu_torch.infer import export, load_serving_model, serve
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch.ops import scoremap_cuda
+
+    cfg = Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
+                 dataset_root_dir=root)
+    check(cfg.crop_size == 256 and cfg.compute_dtype == "bfloat16"
+          and cfg.param_dtype == "float32" and cfg.bn_mode == "fast",
+          "export at full width: crop 256, 21 channels, bf16 compute, "
+          "f32 params, bn_variance 'fast'")
+    H, W = raw_host.image.shape[1:3]
+    raw = raw_host.to(dev)
+    args = (raw.image, raw.mask, raw.keypoint_uv,
+            raw.keypoint_vis.to(torch.float32), raw.keypoint_xyz,
+            raw.camera_K)
+    kernel = scoremap_cuda.KERNEL
+    before = kernel.launches
+    t0 = time.perf_counter()
+    blob = export.export_fused_pipeline(cfg, None, BATCH, (H, W), device=dev)
+    export_s = time.perf_counter() - t0
+    check(kernel.launches == before, "export traced without launching K1")
+    path = os.path.join(root, "flagship_b256.pt2")
+    export.save_exported(path, blob)
+    inputs = os.path.join(root, "raw_b256.pt")
+    torch.save([a.cpu() for a in args], inputs)
+    out_path = os.path.join(root, "artifact_out.pt")
+
+    server = load_serving_model(cfg, device=dev)
+    with torch.inference_mode():
+        ref_xyz, ref_uv = serve(server, raw, cfg, device=dev)
+        eager_ms, eager_host_ms = median_call_ms(
+            lambda: serve(server, raw, cfg, dev))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", _SERVE_ARTIFACT, path,
+                          inputs, out_path, str(SERVE_ITERS)],
+                         capture_output=True, text=True, env=env,
+                         timeout=600)
+    process_s = time.perf_counter() - t0
+    check(res.returncode == 0, "the loading process ran the artifact"
+          + ("" if res.returncode == 0 else ": " + res.stderr[-2000:]))
+    info = json.loads(res.stdout.strip().splitlines()[-1])
+    other = [m for m in info["modules"] if m != "handpose_tpu_torch"
+             and not m.startswith("handpose_tpu_torch.ops")]
+    check(not other, f"the loading process imported the port's ops and "
+          f"nothing else of the package: {other}")
+    check(info["op_calls"] == 1, f"the program calls K1's operator "
+          f"{info['op_calls']} time(s), == 1")
+    check(info["launches"] == 1, f"one call of the loaded program launched "
+          f"K1 {info['launches']} time(s), == 1")
+    out = torch.load(out_path)
+    errs = {k: float((out[k] - r.cpu()).abs().max())
+            for k, r in (("xyz", ref_xyz), ("uv", ref_uv))}
+    rels = {k: rel_err(r, out[k]) for k, r in (("xyz", ref_xyz),
+                                                ("uv", ref_uv))}
+    check(max(rels.values()) <= 1e-6,
+          f"loaded artifact vs eager serve, b{BATCH}: max |diff| xyz "
+          f"{errs['xyz']:.3g}, uv {errs['uv']:.3g} ({rels['xyz']:.3g}, "
+          f"{rels['uv']:.3g} of range) <= 1e-6 of range")
+    del server, out
+
+    # ---- DiffusionHandPose: export_forward at b8, its default ladder ----
+    dcfg = Config(model_name="DiffusionHandPose", input_channels=3,
+                  dataset_root_dir=root)
+    check(dcfg.num_timesteps == 400 and dcfg.num_sampling_timesteps == 200,
+          "DiffusionHandPose at its default ladder: T 400, DDIM 200")
+    small = RawBatch(*(a[:8] for a in raw))
+    t0 = time.perf_counter()
+    dblob = export.export_forward(dcfg, None, 8, device=dev)
+    d_export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dfn = export.load_exported(dblob)
+    d_load_s = time.perf_counter() - t0
+    dmodel = load_serving_model(dcfg, device=dev)
+    with torch.inference_mode():
+        d_ref = serve(dmodel, small, dcfg, device=dev)
+        s = preprocess_batch(small, **serving_kwargs(dcfg))
+        d_args = (model_input(s, 3).contiguous(),
+                  s["camera_intrinsic_matrix"], s["keypoint_scale"],
+                  s["keypoint_xyz_root"])
+    d_out = dfn(*d_args)
+    d_rels = [rel_err(r, o) for r, o in zip(d_ref, d_out)]
+    check(max(d_rels) <= 1e-5 and all(bool(torch.isfinite(o).all())
+                                       for o in d_out),
+          f"DiffusionHandPose artifact vs serve, b8: xyz {d_rels[0]:.3g}, "
+          f"uv {d_rels[1]:.3g} of range <= 1e-5")
+    del dmodel, dfn
+    torch.cuda.empty_cache()
+    record = {
+        "model": cfg.model_name, "batch": BATCH,
+        "export_s": export_s, "artifact_bytes": len(blob),
+        "load_s": info["load_s"], "loading_process_s": process_s,
+        "artifact_serve_ms_median": info["median_ms"],
+        "artifact_serve_ms": info["ms"],
+        "artifact_serve_img_per_s_b256_device_resident":
+            BATCH / info["median_ms"] * 1e3,
+        "artifact_host_enqueue_ms_median": info["host_median_ms"],
+        "eager_serve_ms_median": eager_ms,
+        "eager_host_enqueue_ms_median": eager_host_ms,
+        "eager_serve_img_per_s_b256_device_resident":
+            BATCH / eager_ms * 1e3,
+        "artifact_vs_eager_max_abs": errs, "artifact_vs_eager_rel": rels,
+        "k1_launches_per_call": info["launches"],
+        "diffusion": {"batch": 8, "export_s": d_export_s,
+                      "artifact_bytes": len(dblob), "load_s": d_load_s,
+                      "artifact_vs_serve_rel": d_rels},
+    }
+    print(f"export b{BATCH}: {export_s:.1f} s, {len(blob)} B, load "
+          f"{info['load_s']:.2f} s; loaded {info['median_ms']:.3f} ms "
+          f"({record['artifact_serve_img_per_s_b256_device_resident']:.1f} "
+          f"img/s) vs eager serve {eager_ms:.3f} ms "
+          f"({record['eager_serve_img_per_s_b256_device_resident']:.1f} "
+          f"img/s); the host enqueues a call in {info['host_median_ms']:.2f} "
+          f"ms (eager {eager_host_ms:.2f}); DiffusionHandPose b8 export "
+          f"{d_export_s:.1f} s, "
+          f"{len(dblob)} B", flush=True)
+    return record, info["launches"]
+
+
+def ops_phase(dev):
+    """Each op of the library that no ported path calls, on the card
+    against the host on the same seeded inputs at realistic sizes: the
+    camera conversions, ``camera_xyz_to_uv``, ``absolute_to_rel_normed``,
+    ``flip_right_hand``, ``bone_rel_trafo_inv``,
+    ``render_gaussian_heatmap_3d`` (b8, 42 joints, 64^3),
+    ``affine_warp_bilinear`` (64 x 256 x 256 x 3) and
+    ``transform_input_to_output_space``; 1e-6 of range, 1e-5 for the warp
+    (a matrix inverse).  The numpy helpers (``get_aug_config``,
+    ``gen_trans_from_patch``, ``trans_point2d``, the bbox helpers) run on
+    the host only."""
+    from handpose_tpu_torch import ops
+    rng = np.random.default_rng(5)
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    B = BATCH
+    world = f32(rng.normal(0, 0.2, (B, 42, 3)))
+    R = ops.axis_angle_rot_mat(f32(rng.normal(0, 1, (B, 3))))
+    t = f32(rng.normal(0, 0.1, (B, 3)) + [0, 0, 0.7])
+    f = f32(rng.uniform(400, 600, (B, 2)))
+    c = f32(rng.uniform(100, 200, (B, 2)))
+    cam = ops.world2cam(world, R, t)
+    uvz = ops.cam2pixel(cam, f, c)
+    xyz = f32(rng.normal(0, 0.04, (B, 21, 3)) + [0, 0, 0.6])
+    K = f32([[480.0, 0, 160], [0, 470.0, 150], [0, 0, 1]])
+    rel = ops.bone_rel_trafo(xyz - xyz[:, :1])
+    joints = f32(rng.uniform(-4, 68, (8, 42, 3)))
+    img = f32(rng.uniform(0, 1, (64, 256, 256, 3)))
+    trans = f32(np.stack([ops.gen_trans_from_patch(
+        *rng.uniform(60, 200, 2), *rng.uniform(80, 240, 2), 256, 256,
+        rng.uniform(0.75, 1.25), rng.uniform(-45, 45)) for _ in range(64)]))
+    jc = f32(np.concatenate([rng.uniform(0, 256, (64, 42, 2)),
+                             rng.uniform(-300, 300, (64, 42, 1))], -1))
+    valid = f32(rng.uniform(size=(64, 42)) > 0.2)
+    hand = dict(root_joint_idx={"right": 20, "left": 41},
+                joint_type={"right": np.arange(21),
+                            "left": np.arange(21, 42)})
+    cases = [
+        ("world2cam", ops.world2cam, (world, R, t), {}, 1e-6),
+        ("cam2pixel", ops.cam2pixel, (cam, f, c), {}, 1e-6),
+        ("pixel2cam", ops.pixel2cam, (uvz, f, c), {}, 1e-6),
+        ("camera_xyz_to_uv", ops.camera_xyz_to_uv, (xyz[0], K), {}, 1e-6),
+        ("absolute_to_rel_normed", ops.absolute_to_rel_normed, (xyz,), {},
+         1e-6),
+        ("flip_right_hand", ops.flip_right_hand,
+         (xyz, torch.from_numpy(rng.uniform(size=(B, 21)) > 0.5)), {}, 0.0),
+        ("bone_rel_trafo_inv", ops.bone_rel_trafo_inv, (rel,), {}, 1e-6),
+        ("render_gaussian_heatmap_3d", ops.render_gaussian_heatmap_3d,
+         (joints, (64, 64, 64)), {}, 1e-6),
+        ("affine_warp_bilinear", ops.affine_warp_bilinear,
+         (img, trans, (256, 256)), {}, 1e-5),
+        ("transform_input_to_output_space",
+         ops.transform_input_to_output_space,
+         (jc, valid, f32(rng.uniform(-300, 300, 64)), torch.ones(64)), hand,
+         1e-6),
+    ]
+    errs = {}
+    for name, fn, args, kw, tol in cases:
+        host = fn(*args, **kw)
+        card = fn(*(a.to(dev) if torch.is_tensor(a) else a for a in args),
+                  **kw)
+        torch.cuda.synchronize()
+        host = host if isinstance(host, tuple) else (host,)
+        card = card if isinstance(card, tuple) else (card,)
+        e = max(rel_err(h.float(), k.float()) for h, k in zip(host, card))
+        errs[name] = e
+        check(e <= tol, f"{name} card vs host: {e:.3g} of range <= {tol}")
+        del host, card
+    torch.cuda.empty_cache()
+    return {"card_vs_host_rel": errs}
+
+
+def infer_cli_phase(dev, root, run_dir, best):
+    """``python -m handpose_tpu_torch.infer``'s main on a run directory the
+    augmented training phase wrote: ``--from_run`` with ``--pck`` gives
+    the run's best validation MPJPE exactly; with ``--visualize_dir`` it
+    does too and writes ``--visualize_n`` overlays that the port's
+    decoder reads back at the crop's size; ``--export`` writes an
+    artifact that loads and runs."""
+    from handpose_tpu_torch.data import imageio
+    from handpose_tpu_torch.data.rhd import RHDDataset
+    from handpose_tpu_torch.data.preprocess import (model_input,
+                                                    preprocess_batch)
+    from handpose_tpu_torch.infer import export
+    from handpose_tpu_torch.infer.__main__ import main as infer_main
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch import Config
+
+    k1 = _counts()[0]
+    k1.launches = 0
+    t0 = time.perf_counter()
+    res = infer_main(["--from_run", run_dir, "--pck",
+                      "--batch_size", str(BATCH)])
+    pck_s = time.perf_counter() - t0
+    check(res["mpjpe"] == best, f"infer --from_run --pck: MPJPE "
+          f"{res['mpjpe']!r} == the run's best {best!r}; AUC "
+          f"{res['auc_20_50mm']:.4f}")
+    vis = os.path.join(root, "overlays")
+    t0 = time.perf_counter()
+    mpjpe = infer_main(["--from_run", run_dir, "--batch_size", str(BATCH),
+                        "--visualize_dir", vis])
+    vis_s = time.perf_counter() - t0
+    launches = k1.launches
+    check(mpjpe == best, f"infer --from_run --visualize_dir: MPJPE "
+          f"{mpjpe!r} == the run's best {best!r}")
+    names = sorted(os.listdir(os.path.join(vis, "img")))
+    check(names == [f"000_{i:03d}_pre.jpg" for i in range(8)],
+          f"infer --visualize_dir wrote the 8 overlays {names}")
+    with open(os.path.join(run_dir, "config.json")) as f:
+        cfg = Config.from_json(f.read())
+    crop = cfg.crop_size
+    imgs = imageio.decode_batch([os.path.join(vis, "img", n) for n in names],
+                                crop, crop)
+    check(imgs.shape == (8, crop, crop, 3) and imgs.std() > 0,
+          f"the port's decoder reads the overlays back at {crop}x{crop}")
+    path = os.path.join(root, "cli_export.pt2")
+    infer_main(["--from_run", run_dir, "--export", path,
+                "--export_batch", "4"])
+    fn = export.load_exported_file(path)
+    raw = RHDDataset(root, "evaluation", cache_decoded=True).raw_batch(
+        range(4)).to(dev)
+    with torch.inference_mode():
+        s = preprocess_batch(raw, **serving_kwargs(cfg))
+        xyz, uv = fn(model_input(s, cfg.input_channels).contiguous(),
+                     s["camera_intrinsic_matrix"], s["keypoint_scale"],
+                     s["keypoint_xyz_root"])
+    check(tuple(xyz.shape) == (4, 21, 3) and bool(torch.isfinite(xyz).all()
+                                                  and torch.isfinite(uv).all()),
+          "infer --export wrote an artifact that loads and runs (b4)")
+    return {"pck_mpjpe_mm": res["mpjpe"], "auc_20_50mm": res["auc_20_50mm"],
+            "visualize_mpjpe_mm": mpjpe, "pck_run_s": pck_s,
+            "visualize_run_s": vis_s, "overlays": len(names),
+            "export_bytes": os.path.getsize(path)}, launches
+
+
+def profile_phase(dev, root):
+    """A fast_debug Worker with ``profile_epoch=0`` writes a chrome trace
+    under ``run_dir/profile/`` whose kernel events name K1, K2's two
+    kernels and K3."""
+    import glob
+    from handpose_tpu_torch.train import Worker
+    logs = tempfile.mkdtemp(dir=root)
+    cfg = train_config(root, logs, profile_epoch=0).replace(max_epoch=1)
+    worker = Worker(cfg, device=dev)
+    t0 = time.perf_counter()
+    worker.run(fast_debug=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    traces = glob.glob(os.path.join(worker.run_dir, "profile", "*.json"))
+    check(len(traces) == 1, f"profile_epoch=0 wrote one trace under "
+          f"run_dir/profile/: {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    want = {"K1": "scoremap_", "K2 partial": "moments_partial_kernel",
+            "K2 final": "moments_final_kernel", "K3": "pool_bwd_tiled"}
+    found = {k: sorted(n for n in kernels if v in n) for k, v in want.items()}
+    check(all(found.values()), f"the trace's kernel events name K1, K2 and "
+          f"K3: {found}")
+    del worker
+    torch.cuda.empty_cache()
+    return {"trace_bytes": os.path.getsize(traces[0]),
+            "kernel_event_names": len(kernels), "run_s": run_s,
+            "kernels_found": found}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -2232,9 +2622,20 @@ def main():
         training, (k1_train, k2_train, k3_train), k2_shapes = \
             training_phase(dev, root, raw_host)
         torch.cuda.empty_cache()
-        augmented, (k1_aug, k2_aug, k3_aug) = augmented_training_phase(
-            dev, root, raw_host, training)
+        augmented, (k1_aug, k2_aug, k3_aug), aug_run = \
+            augmented_training_phase(dev, root, raw_host, training)
         preemption = preemption_phase(dev, root)
+        t_new = time.perf_counter()
+        exported, k1_export = export_phase(dev, root, raw_host)
+        ops_library = ops_phase(dev)
+        infer_cli, k1_infer_cli = infer_cli_phase(
+            dev, root, aug_run, augmented["val_mpjpe_mm"])
+        reset_counts()
+        profile = profile_phase(dev, root)
+        profile_launches = [k.launches for k in _counts()]
+        new_phases_s = time.perf_counter() - t_new
+        print(f"export, ops, inference CLI and profile phases: "
+              f"{new_phases_s:.1f} s", flush=True)
         ih_root = os.path.join(root, "interhand")
         t0 = time.perf_counter()
         for split, seed in (("train", 1), ("val", 2)):
@@ -2289,7 +2690,9 @@ def main():
         **{f"{m}_serving": k1_fm_serving[m] for m in FK_MANO_MODELS},
         **{f"{m}_training": fm_launches[m][0] for m in FK_MANO_MODELS},
         f"{DIFFUSION}_serving": k1_diff_serving,
-        f"{DIFFUSION}_training": diff_launches[0]}
+        f"{DIFFUSION}_training": diff_launches[0],
+        "export": k1_export, "infer_cli": k1_infer_cli,
+        "profile_worker": profile_launches[0]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {
         "training": k2_train, "augmented_training": k2_aug,
@@ -2297,7 +2700,8 @@ def main():
         **{f"{m}_training": r50_launches[m][1] for m in RESNET50_MODELS},
         "k7s2_step": stem_launches[1],
         **{f"{m}_training": fm_launches[m][1] for m in FK_MANO_MODELS},
-        f"{DIFFUSION}_training": diff_launches[1]}
+        f"{DIFFUSION}_training": diff_launches[1],
+        "profile_worker": profile_launches[1]}
     k2["launches"] = sum(k2["launches_by_path"].values())
     k3["launches_by_path"] = {
         "training": k3_train, "augmented_training": k3_aug,
@@ -2305,20 +2709,27 @@ def main():
         **{f"{m}_training": r50_launches[m][2] for m in RESNET50_MODELS},
         "k7s2_step": stem_launches[2],
         **{f"{m}_training": fm_launches[m][2] for m in FK_MANO_MODELS},
-        f"{DIFFUSION}_training": diff_launches[2]}
+        f"{DIFFUSION}_training": diff_launches[2],
+        "profile_worker": profile_launches[2]}
     k3["launches"] = sum(k3["launches_by_path"].values())
     k3["launches_by_variant"] = training["pool_bwd_launches_by_variant"]
     for record in (decode, serving, training, augmented, preemption,
                    ih_serving, ih_training, r50_serving, stems,
                    *r50_training.values(), fk_mano, *fm_serving.values(),
                    *fm_training.values(), diffusion, diff_serving,
-                   diff_training):
+                   diff_training, exported, ops_library, infer_cli,
+                   profile):
         record["card"] = card
+    exported["new_phases_s"] = new_phases_s
     print(json.dumps({"decode": decode}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"augmented_training": augmented}), flush=True)
     print(json.dumps({"preemption": preemption}), flush=True)
+    print(json.dumps({"export": exported}), flush=True)
+    print(json.dumps({"ops_library": ops_library}), flush=True)
+    print(json.dumps({"infer_cli": infer_cli}), flush=True)
+    print(json.dumps({"profile": profile}), flush=True)
     print(json.dumps({"interhand_serving": ih_serving}), flush=True)
     print(json.dumps({"interhand_training": ih_training}), flush=True)
     print(json.dumps({"resnet50_serving": r50_serving}), flush=True)

@@ -17,13 +17,27 @@ checkpoints, resume, preemption, run logging and fake data, the
 ``Evaluator`` with MPJPE, PCK and AUC, and ``serve``.  The ResNet-50
 family (``TwoDimHandPose``, ``OnlyThreeDimHandPose``, ``Hand3DPoseNet``)
 with the three stems and the trainer-A losses runs through the same
-harness.
+harness, and so do the FK, MANO and diffusion families.  ``infer.export``
+writes ``torch.export`` serving artifacts, which a process loads after
+importing ``handpose_tpu_torch.ops`` alone; this package and
+``handpose_tpu_torch.infer`` import their names on first use for that.
 """
 
 __version__ = "0.1.0"
 
-from .config import Config, LOSS_GATES, MODEL_NAMES, apply_overrides
-from .device import resolve_device
-
 __all__ = ["Config", "LOSS_GATES", "MODEL_NAMES", "apply_overrides",
            "resolve_device"]
+
+_LAZY = {"Config": "config", "LOSS_GATES": "config", "MODEL_NAMES": "config",
+         "apply_overrides": "config", "resolve_device": "device"}
+
+
+def __getattr__(name):
+    # imported on first use, so that a serving process that imports only
+    # ``handpose_tpu_torch.ops`` (to load an exported artifact) loads no
+    # config, model or training module
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -4,8 +4,9 @@ Port of ``handpose_tpu/data/preprocess.py:32-497``: dominant-hand
 selection from the mask, mirroring of left hands, root-relative,
 bone-relative and canonical transforms, crop with bilinear resize,
 intrinsics rewrite and the Gaussian scoremaps, batched on the device of
-the raw batch.  The scoremaps go through the CUDA kernel's wrapper, so on
-the card the render is always the hand-written kernel.
+the raw batch.  The scoremaps go through the CUDA kernel's registered
+operator (``ops/scoremap_cuda.py``), so on the card the render is always
+the hand-written kernel, eager or replayed from an exported program.
 
 Layouts follow the JAX package: images and ``model_input`` are NHWC, the
 scoremap is (B, K, H, W).  The train-time augmentations (uv, crop

@@ -1,2 +1,2 @@
-"""Standalone demos: ``python -m handpose_tpu_torch.examples.diffusion1d``
-and ``python -m handpose_tpu_torch.examples.diffusion2d``."""
+"""Standalone demos: ``python -m handpose_tpu_torch.examples.diffusion1d``,
+``... .diffusion2d`` and ``... .serving_demo``."""

@@ -13,6 +13,14 @@ The trainer-A models are evaluated as built (``TwoDimHandPoseWithFK``
 with ``is_inference=False``, whose ``xyz`` is the inference branch's);
 ``TwoDimHandPose`` has no 3-D output, so its PCK curve is zero and its
 AUC 0, as in the JAX ``evaluate_full``.
+
+With ``visualize_dir``, ``evaluate(visualize_first_n=n)`` writes the
+first batch's first n crops with the ground truth in green and the
+prediction in red over them (JAX ``_visualize``, :241-261) to
+``visualize_dir/img/000_{i:03d}_pre.jpg``.  The JAX Evaluator takes that
+uv from the ``is_inference=True`` model; the port's model is the
+``is_inference=False`` one, so :func:`inference_uv` computes the
+inference branch's uv from its output, with the same operations.
 """
 
 from __future__ import annotations
@@ -28,12 +36,14 @@ import torch
 from ..config import Config
 from ..convert import load_flax_variables
 from ..data.pipeline import open_dataset, raw_device_batches
+from ..data.preprocess import preprocess_fn_for
 from ..data.synthetic import fake_sample_batch
 from ..device import resolve_device
 from ..models import build_model, mano_source_of
+from ..ops.projection import batch_project_xyz_to_uv, rel_normed_to_absolute
 from ..train.checkpoints import load_variables
-from ..train.steps import (make_eval_step, make_fused_eval_step,
-                           pass_draws)
+from ..train.steps import (_TRAINER_B, forward, make_eval_step,
+                           make_fused_eval_step, pass_draws)
 
 Weights = Union[str, Mapping[str, np.ndarray], None]
 DATASETS = ("RHD", "InterHand2.6M", "synthetic")
@@ -82,6 +92,24 @@ def _check_mano(cfg: Config, weights: Weights) -> None:
                       f"evaluation loads {mano}")
 
 
+def inference_uv(cfg: Config, out, sample: dict):
+    """The (B, 21, 2) uv that the ``is_inference=True`` model returns,
+    from the output of the ``is_inference=False`` one on ``sample``: the
+    trainer-B models project their absolute coords, built from the
+    predicted root-relative ones; ``TwoDimHandPoseWithFK`` projects its
+    FK xyz; the other models return one uv in both branches (None for
+    ``ThreeHandShapeAndPoseMANO`` without ``network_regress_uv``)."""
+    K = sample["camera_intrinsic_matrix"]
+    if cfg.model_name in _TRAINER_B:
+        xyz = rel_normed_to_absolute(out.coord_xyz_rel_normed,
+                                     sample["keypoint_scale"],
+                                     sample["keypoint_xyz_root"])
+        return batch_project_xyz_to_uv(xyz, K)
+    if cfg.model_name == "TwoDimHandPoseWithFK":
+        return batch_project_xyz_to_uv(out.xyz, K)
+    return out.uv
+
+
 def serving_kwargs(cfg: Config) -> dict:
     """The preprocessing arguments of the JAX Evaluator's fused path."""
     return dict(crop_size=cfg.crop_size, sigma=cfg.sigma,
@@ -92,14 +120,23 @@ class Evaluator:
     """``Evaluator(cfg, weights, device).evaluate()`` -> visible-joint
     MPJPE (mm) aggregated exactly over every sample of the split, the
     trailing partial batch included; ``evaluate_full()`` adds the PCK
-    curve and its 20-50 mm AUC."""
+    curve and its 20-50 mm AUC.  ``cfg.compilation_cache_dir`` names
+    where the native libraries are built and found
+    (``utils.device_info.enable_compilation_cache``)."""
 
-    def __init__(self, cfg: Config, weights: Weights = None, device=None):
+    def __init__(self, cfg: Config, weights: Weights = None, device=None,
+                 visualize_dir: Optional[str] = None):
         if cfg.dataset_name not in DATASETS:
             raise ValueError(f"dataset {cfg.dataset_name!r} not in "
                              f"{DATASETS}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.compilation_cache_dir:
+            from ..utils.device_info import enable_compilation_cache
+            enable_compilation_cache(cfg.compilation_cache_dir)
+        self.visualize_dir = visualize_dir
+        if visualize_dir:
+            os.makedirs(os.path.join(visualize_dir, "img"), exist_ok=True)
         model = build_model(cfg, is_inference=False)
         self.model = load_weights(model, weights).to(self.device)
         _check_mano(cfg, weights)
@@ -141,9 +178,11 @@ class Evaluator:
                                   self.device,
                                   depth=max(cfg.prefetch_depth, 2))
 
-    def evaluate(self, max_batches: Optional[int] = None) -> float:
+    def evaluate(self, max_batches: Optional[int] = None,
+                 visualize_first_n: int = 0) -> float:
         """Whole-split visible-joint MPJPE; NaN (with a warning) when no
-        joint is visible."""
+        joint is visible.  With ``visualize_dir`` set, the first batch's
+        first ``visualize_first_n`` overlays are written."""
         total = torch.zeros((), dtype=torch.float64, device=self.device)
         count = torch.zeros((), dtype=torch.float64, device=self.device)
         draws = pass_draws(self.model, self.cfg, self.device)
@@ -153,7 +192,37 @@ class Evaluator:
             metrics = self.eval_step(raw, **draws)
             total += metrics["mpjpe_sum"].to(torch.float64)
             count += metrics["mpjpe_count"].to(torch.float64)
+            if self.visualize_dir and bi == 0 and visualize_first_n:
+                self._visualize(raw, visualize_first_n, bi)
         return _mpjpe(float(total), float(count))
+
+    @torch.inference_mode()
+    def _visualize(self, batch, n: int, batch_idx: int) -> None:
+        """Overlays of the first ``n`` samples of ``batch`` (a raw batch,
+        or a sample dict for synthetic data): the crop, the ground-truth
+        uv in green and the predicted uv in red, joints in MANO order,
+        written to ``visualize_dir/img/{batch:03d}_{i:03d}_pre.jpg``; none
+        for a model without uv.  A stochastic model draws as the pass's
+        first batch did."""
+        from ..utils.vis import plot_pred_vs_gt, save_image, to_uint8_image
+        cfg = self.cfg
+        sample = (preprocess_fn_for(batch)(batch, **serving_kwargs(cfg))
+                  if self.fused else batch)
+        out = forward(self.model, sample, cfg,
+                      **pass_draws(self.model, cfg, self.device))
+        uv = inference_uv(cfg, out, sample)
+        if uv is None:
+            return
+        n = min(n, uv.shape[0])
+        pred_uv = uv[:n].float().cpu().numpy()
+        imgs = sample["image_crop"][:n].float().cpu().numpy()
+        gt_uv = sample["keypoint_uv21"][:n].float().cpu().numpy()
+        vis = sample["keypoint_vis21"][:n].cpu().numpy()
+        for i in range(n):
+            img = plot_pred_vs_gt(to_uint8_image(imgs[i]), pred_uv[i],
+                                  gt_uv[i], vis[i])
+            save_image(os.path.join(self.visualize_dir, "img",
+                                    f"{batch_idx:03d}_{i:03d}_pre.jpg"), img)
 
     def _pck_step(self, ts: np.ndarray):
         key = tuple(ts.tolist())

@@ -237,8 +237,9 @@ class DiffusionHandPose(_ResNet50Model):
     gradient (every reference sampler is ``@torch.no_grad``; JAX's
     ``stop_gradient``), so the UNet trains only through
     ``diffusion_loss``.  Draws come from ``generator`` (the loss's t, then
-    its noise, then x_T) unless ``diff_t``, ``diff_noise`` or
-    ``init_noise`` inject them."""
+    its noise, then x_T, then the sampler's step noise when it draws any)
+    unless ``diff_t``, ``diff_noise``, ``init_noise`` or ``step_noise``
+    inject them."""
 
     geometry_inputs = ("bone_angle_pred_model", "bone_length_pred_model")
     stochastic = True
@@ -258,8 +259,8 @@ class DiffusionHandPose(_ResNet50Model):
     def forward(self, img: torch.Tensor, camera_intrinsic_matrix=None,
                 index_root_bone_length=None, keypoint_xyz_root=None,
                 pose_x0=None, generator: Optional[torch.Generator] = None,
-                init_noise=None, diff_t=None, diff_noise=None
-                ) -> ModelOutput:
+                init_noise=None, diff_t=None, diff_noise=None,
+                step_noise=None) -> ModelOutput:
         feat = self.features(img)
         diffusion_loss = None
         if pose_x0 is not None:
@@ -269,7 +270,8 @@ class DiffusionHandPose(_ResNet50Model):
             return ModelOutput(diffusion_loss=diffusion_loss)
         with torch.no_grad():
             coarse = self.diff_model.sample(feat, generator,
-                                            init_noise=init_noise)
+                                            init_noise=init_noise,
+                                            step_noise=step_noise)
         coarse = coarse.reshape(coarse.shape[0], -1)           # (B, 63)
         root_angles, other_angles = self.bone_angle_pred_model(coarse)
         xyz, uv = forward_kinematics(

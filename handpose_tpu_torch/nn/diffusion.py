@@ -31,7 +31,7 @@ E[x^2] - E[x]^2 clipped at 0 (``use_fast_variance=True``), eps 1e-5 here;
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -627,25 +627,56 @@ class GaussianDiffusion1D:
             return torch.randn(shape, generator=generator, **like)
         return torch.as_tensor(init_noise, **like).reshape(shape)
 
-    def _denoiser(self, denoise_fn, shape, condition, table_fn,
-                  times: np.ndarray, device) -> Callable:
-        """call(img, i): the denoiser at step i of ``times``, through the
-        hoisted tables of ``table_fn`` when it is given."""
-        t_all = torch.as_tensor(times, dtype=torch.long, device=device)
-        B = shape[0]
-        if table_fn is None:
-            return lambda img, i: denoise_fn(img, t_all[i].expand(B),
-                                             condition)
-        tables = table_fn(torch.as_tensor(times, dtype=torch.float32,
-                                          device=device))
-        return lambda img, i: denoise_fn(
-            img, t_all[i].expand(B), condition,
-            {k: v[i] for k, v in tables.items()})
+    def _step_tables(self, condition, table_fn, times: np.ndarray,
+                     cf: Dict[str, torch.Tensor], step_noise,
+                     device) -> Dict[str, torch.Tensor]:
+        """Every per-step input of a sampler loop as a table with the step
+        on its first axis: the time ``t``, the coefficients of ``cf``, the
+        hoisted time tables of ``table_fn`` when it is given (``tab.*``)
+        and the injected ``step_noise`` (``noise``)."""
+        xs = {"t": torch.as_tensor(times, dtype=torch.long, device=device)}
+        xs.update(cf)
+        if table_fn is not None:
+            tables = table_fn(torch.as_tensor(times, dtype=torch.float32,
+                                              device=device))
+            xs.update({f"tab.{k}": v for k, v in tables.items()})
+        if step_noise is not None:
+            xs["noise"] = torch.as_tensor(step_noise, device=device)
+        return xs
 
-    def _step_noise(self, i, shape, like, generator, step_noise):
-        if step_noise is None:
-            return torch.randn(shape, generator=generator, **like)
-        return torch.as_tensor(step_noise[i], **like).reshape(shape)
+    @staticmethod
+    def _denoise(denoise_fn, img, x, condition):
+        """The denoiser at the step whose row of the tables is ``x``."""
+        t = x["t"].expand(img.shape[0])
+        tables = {k[4:]: v for k, v in x.items() if k.startswith("tab.")}
+        if not tables:
+            return denoise_fn(img, t, condition)
+        return denoise_fn(img, t, condition, tables)
+
+    @staticmethod
+    def _noise(x, shape, like, generator):
+        """The step's noise: its injected row, else drawn."""
+        if "noise" in x:
+            return x["noise"].to(**like).reshape(shape)
+        if _exporting():
+            raise ValueError("an exported sampler takes its step noise "
+                             "injected (step_noise)")
+        return torch.randn(shape, generator=generator, **like)
+
+    @staticmethod
+    def _run_steps(body, img, xs: Dict[str, torch.Tensor]):
+        """``img`` through ``body(img, x_i)`` for each step i, where x_i
+        holds row i of every table of ``xs``.  Eagerly a Python loop;
+        while ``torch.export`` traces, one ``scan`` over the rows, so an
+        exported sampler holds one step's graph, as JAX's ``lax.scan``
+        does, rather than a copy per step."""
+        if _exporting():
+            from torch._higher_order_ops import scan
+            img, _ = scan(lambda c, x: (body(c, x), ()), img, xs)
+            return img
+        for i in range(xs["t"].shape[0]):
+            img = body(img, {k: v[i] for k, v in xs.items()})
+        return img
 
     @torch.no_grad()
     def ddim_sample(self, denoise_fn, shape, condition,
@@ -675,20 +706,21 @@ class GaussianDiffusion1D:
                       sigma=sigma), device)
 
         img = self._start(shape, like, generator, init_noise)
-        call = self._denoiser(denoise_fn, shape, condition, table_fn, time,
-                              device)
+        xs = self._step_tables(condition, table_fn, time, cf, step_noise,
+                               device)
         use_noise = self.eta != 0.0
-        for i in range(pairs.shape[0]):
-            out = call(img, i)
-            c_i = {k: v[i] for k, v in cf.items()}
+
+        def step(img, x):
+            out = self._denoise(denoise_fn, img, x, condition)
             pred_noise, x_start = self._predictions_from_coefs(
-                c_i, img, out, clip_denoised)
-            img_next = x_start * c_i["sqan"] + c_i["c"] * pred_noise
+                x, img, out, clip_denoised)
+            img_next = x_start * x["sqan"] + x["c"] * pred_noise
             if use_noise:
-                img_next = img_next + c_i["sigma"] * self._step_noise(
-                    i, shape, like, generator, step_noise)
-            img = img_next
-        return self.unnormalize(img)
+                img_next = img_next + x["sigma"] * self._noise(
+                    x, shape, like, generator)
+            return img_next
+
+        return self.unnormalize(self._run_steps(step, img, xs))
 
     @torch.no_grad()
     def p_sample_loop(self, denoise_fn, shape, condition,
@@ -710,18 +742,17 @@ class GaussianDiffusion1D:
                       c1=np.asarray(s.posterior_mean_coef1)[ts],
                       c2=np.asarray(s.posterior_mean_coef2)[ts], std=std),
                  device)
-        call = self._denoiser(denoise_fn, shape, condition, table_fn, ts,
-                              device)
-        for i in range(ts.shape[0]):
-            out = call(img, i)
-            c_i = {k: v[i] for k, v in cf.items()}
-            _, x_start = self._predictions_from_coefs(c_i, img, out,
+        xs = self._step_tables(condition, table_fn, ts, cf, step_noise,
+                               device)
+
+        def step(img, x):
+            out = self._denoise(denoise_fn, img, x, condition)
+            _, x_start = self._predictions_from_coefs(x, img, out,
                                                       clip_denoised)
-            mean = c_i["c1"] * x_start + c_i["c2"] * img
-            noise = self._step_noise(i, shape, like, generator,
-                                     step_noise)
-            img = mean + c_i["std"] * noise
-        return self.unnormalize(img)
+            mean = x["c1"] * x_start + x["c2"] * img
+            return mean + x["std"] * self._noise(x, shape, like, generator)
+
+        return self.unnormalize(self._run_steps(step, img, xs))
 
     def sample(self, denoise_fn, batch_size, condition,
                generator: Optional[torch.Generator] = None,
@@ -731,6 +762,11 @@ class GaussianDiffusion1D:
         fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
         return fn(denoise_fn, shape, condition, generator, clip_denoised,
                   init_noise, table_fn, step_noise)
+
+
+def _exporting() -> bool:
+    """Whether ``torch.export`` is tracing the caller."""
+    return torch.compiler.is_exporting()
 
 
 def _like(condition, generator, init_noise) -> dict:

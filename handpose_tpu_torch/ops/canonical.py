@@ -1,7 +1,7 @@
 """Canonical-frame alignment of 21-keypoint hands.
 
-Port of ``handpose_tpu/ops/canonical.py:21-58`` (reference
-utils/canonical_trafo.py:93-158).
+Port of ``handpose_tpu/ops/canonical.py:21-81`` (reference
+utils/canonical_trafo.py:93-184).
 """
 
 from __future__ import annotations
@@ -47,3 +47,23 @@ def canonical_trafo(coords_xyz: torch.Tensor):
     total = total @ r3
 
     return coords_normed, total
+
+
+def flip_right_hand(coords_xyz_canonical: torch.Tensor,
+                    cond_right) -> torch.Tensor:
+    """Mirror canonical coords along z where ``cond_right`` holds.
+
+    ``coords_xyz_canonical`` is (B, N, 3) or (N, 3).  ``cond_right`` gets
+    one trailing singleton axis, and a leading batch axis beside
+    unbatched coords (the reference's broadcasting): (B, N) and (B, 1)
+    select per keypoint and per sample, and an unbatched (N,) or scalar
+    cond pairs with (N, 3) coords.
+    """
+    expanded = coords_xyz_canonical.ndim == 2
+    c = coords_xyz_canonical[None] if expanded else coords_xyz_canonical
+    cond = torch.as_tensor(cond_right, device=c.device).to(torch.bool)
+    if expanded:
+        cond = cond[None]
+    mirrored = torch.stack([c[..., 0], c[..., 1], -c[..., 2]], dim=-1)
+    out = torch.where(cond[..., None], mirrored, c)
+    return out[0] if expanded else out

@@ -1,7 +1,8 @@
-"""Gaussian scoremap rendering: the plain PyTorch version.
+"""Gaussian scoremap rendering: the plain PyTorch version, and the 3-D
+heatmap volumes.
 
-Port of ``handpose_tpu/ops/heatmap.py:23-60`` (reference
-dataloaderRHD.py:538-584).  The 2-D Gaussian is separable, so each map is
+Port of ``handpose_tpu/ops/heatmap.py:23-89`` (reference
+dataloaderRHD.py:538-584, utils/compute_heatmap.py:12-26).  The 2-D Gaussian is separable, so each map is
 the outer product of a (H,) and a (W,) factor.  This is the function the
 CUDA kernel (``ops/scoremap_cuda.py``) is held to; the preprocessing path
 calls the kernel's wrapper, which uses this version for host tensors only.
@@ -47,3 +48,31 @@ def render_gaussian_maps(coords_hw: torch.Tensor,
     gx = torch.exp(-((xs[None, None, :] - cx[..., None]) ** 2) * inv_s2)
     maps = gy[..., :, None] * gx[..., None, :]                  # (B,K,H,W)
     return maps * cond[..., None, None]
+
+
+def render_gaussian_heatmap_3d(joint_coords: torch.Tensor,
+                               output_hm_shape: tuple[int, int, int],
+                               sigma: float = 2.5) -> torch.Tensor:
+    """(B, J, 3) (x, y, z) in heatmap voxels -> (B, J, D, H, W) Gaussian
+    volumes times 255 (reference utils/compute_heatmap.py:12-26).
+
+    Not the 2-D map's formula: the coordinates are not truncated, the
+    exponent is ``-d^2 / (2 sigma^2)``, and there is no visibility gate.
+    Separable: the outer product of a (D,), an (H,) and a (W,) factor.
+    No Pallas kernel computes it in the JAX package either.
+    """
+    D, H, W = output_hm_shape
+    dev = joint_coords.device
+    x = joint_coords[..., 0]
+    y = joint_coords[..., 1]
+    z = joint_coords[..., 2]
+    inv = 1.0 / (2.0 * sigma ** 2)
+    zz = torch.arange(D, dtype=torch.float32, device=dev)
+    yy = torch.arange(H, dtype=torch.float32, device=dev)
+    xx = torch.arange(W, dtype=torch.float32, device=dev)
+    gz = torch.exp(-((zz[None, None, :] - z[..., None]) ** 2) * inv)
+    gy = torch.exp(-((yy[None, None, :] - y[..., None]) ** 2) * inv)
+    gx = torch.exp(-((xx[None, None, :] - x[..., None]) ** 2) * inv)
+    vol = (gz[..., :, None, None] * gy[..., None, :, None]
+           * gx[..., None, None, :])
+    return vol * 255.0

@@ -1,13 +1,24 @@
 """Wrapper of the CUDA scoremap kernel (``csrc/scoremap.cu``).
 
 Replaces ``handpose_tpu/ops/pallas_kernels.py:render_gaussian_maps_pallas``.
-:func:`render_gaussian_maps_cuda` takes the arguments of the plain
-:func:`handpose_tpu_torch.ops.heatmap.render_gaussian_maps`:
+The kernel is registered as the PyTorch operator
+``torch.ops.handpose_tpu_torch.render_gaussian_maps`` (a
+``torch.library.custom_op`` with a fake function that gives the output's
+shape), so ``torch.export`` records one call of it in an exported program
+instead of tracing into its body, and the program runs the kernel when it
+is replayed on the card.  The operator dispatches on the coordinates'
+device:
 
-* host tensors go to the plain version;
-* CUDA tensors launch the kernel, or raise: there is no fallback.
+* host tensors go to the plain
+  :func:`handpose_tpu_torch.ops.heatmap.render_gaussian_maps`;
+* CUDA tensors launch the kernel, or raise: there is no fallback;
+* any other device raises.
 
-``KERNEL.launches`` counts the kernel's launches and nothing else.
+:func:`render_gaussian_maps_cuda` takes the plain version's arguments and
+calls the operator.  Importing this module (``handpose_tpu_torch.ops``
+does) registers the operator; a process that loads an exported program
+must import it first.  ``KERNEL.launches`` counts the kernel's launches
+and nothing else.
 """
 
 from __future__ import annotations
@@ -72,16 +83,34 @@ class ScoremapKernel:
 
 KERNEL = ScoremapKernel()
 
+OP_NAME = "handpose_tpu_torch::render_gaussian_maps"
+
+
+@torch.library.custom_op(OP_NAME, mutates_args=())
+def render_gaussian_maps_op(coords_hw: torch.Tensor, valid: torch.Tensor,
+                            height: int, width: int,
+                            sigma: float) -> torch.Tensor:
+    """The registered operator: (B, K, 2) (row, col) coords, (B, K[,1])
+    visibility -> (B, K, height, width) float32 maps."""
+    if coords_hw.device.type == "cpu":
+        return render_gaussian_maps(coords_hw, (height, width), sigma, valid)
+    if coords_hw.device.type != "cuda":
+        raise ValueError(f"no scoremap kernel for device {coords_hw.device}")
+    return KERNEL(coords_hw, (height, width), sigma, valid)
+
+
+@render_gaussian_maps_op.register_fake
+def _render_gaussian_maps_fake(coords_hw, valid, height, width, sigma):
+    return coords_hw.new_empty((coords_hw.shape[0], coords_hw.shape[1],
+                                height, width), dtype=torch.float32)
+
 
 def render_gaussian_maps_cuda(coords_hw: torch.Tensor,
                               output_size: tuple[int, int],
                               sigma: float,
                               valid: torch.Tensor) -> torch.Tensor:
     """(B, K, 2) (row, col) coords + (B, K[,1]) bool visibility ->
-    (B, K, H, W) float32 maps: the kernel on the card, the plain version
-    for host tensors."""
-    if coords_hw.device.type == "cpu":
-        return render_gaussian_maps(coords_hw, output_size, sigma, valid)
-    if coords_hw.device.type != "cuda":
-        raise ValueError(f"no scoremap kernel for device {coords_hw.device}")
-    return KERNEL(coords_hw, output_size, sigma, valid)
+    (B, K, H, W) float32 maps through the registered operator: the kernel
+    on the card, the plain version for host tensors."""
+    H, W = (int(s) for s in output_size)
+    return render_gaussian_maps_op(coords_hw, valid, H, W, float(sigma))

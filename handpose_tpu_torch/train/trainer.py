@@ -16,7 +16,10 @@ steps); ``fast_debug`` (3 iterations per epoch); the NaN abort; the run
 directory with its config and provenance, TensorBoard scalars,
 ``log.txt`` and the step against input-stall times; a checkpoint at
 every epoch's end (``model_best`` on a new best), resume and finetune;
-and preemption-safe training.
+and preemption-safe training; ``cfg.profile_epoch`` traces that epoch's
+training into ``run_dir/profile/`` (a ``torch.profiler`` chrome trace,
+the card's kernels included), and ``cfg.compilation_cache_dir`` names
+where the native libraries are built and found.
 
 PyTorch runs eagerly, so ``steps_per_dispatch`` (k fused steps in one
 XLA program in the JAX package, the same math as k single steps) runs
@@ -85,6 +88,9 @@ class Worker:
         _check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.compilation_cache_dir:
+            from ..utils.device_info import enable_compilation_cache
+            enable_compilation_cache(cfg.compilation_cache_dir)
         self.model = load_weights(build_model(cfg), weights).to(self.device)
         self.fused = not _is_fake(cfg)
         if self.fused:
@@ -282,7 +288,12 @@ class Worker:
         end = max_epoch if max_epoch is not None else self.cfg.max_epoch
         run_dir = os.path.abspath(self.run_dir)
         for epoch in range(self.start_epoch, end):
-            self.run_epoch(epoch, "training", fast_debug)
+            if epoch == self.cfg.profile_epoch:
+                from ..utils.device_info import profile_trace
+                with profile_trace(os.path.join(run_dir, "profile")):
+                    self.run_epoch(epoch, "training", fast_debug)
+            else:
+                self.run_epoch(epoch, "training", fast_debug)
             if self._preempt_now():
                 # the epoch ran in part: resume restarts it
                 self._save_preemption_checkpoint(epoch)

@@ -3,7 +3,9 @@
 ``handpose_tpu_torch`` imports neither JAX nor flax nor anything of
 ``handpose_tpu``, decodes images without loading the JAX package's
 native decoder (``native/``), and its entry points default to the card
-and raise when there is none.  Decided inside the tests, never at import.
+and raise when there is none.  A serving process that loads an exported
+artifact imports the package's ops and loader, and no model, config or
+training module.  Decided inside the tests, never at import.
 """
 
 import os
@@ -26,7 +28,11 @@ bad = sorted(m for m in sys.modules
 new = ["handpose_tpu_torch.nn.diffusion", "handpose_tpu_torch.nn.diffusion2d",
        "handpose_tpu_torch.utils.fid",
        "handpose_tpu_torch.examples.diffusion1d",
-       "handpose_tpu_torch.examples.diffusion2d"]
+       "handpose_tpu_torch.examples.diffusion2d",
+       "handpose_tpu_torch.ops.camera", "handpose_tpu_torch.ops.patch",
+       "handpose_tpu_torch.utils.vis", "handpose_tpu_torch.utils.device_info",
+       "handpose_tpu_torch.infer.export",
+       "handpose_tpu_torch.examples.serving_demo"]
 assert all(n in names for n in new), names
 print(len(names), bad)
 """
@@ -91,3 +97,35 @@ def test_entry_points_default_to_the_card(tmp_path):
         serve(model, raw, cfg)
     xyz, uv = serve(model, raw, cfg, device="cpu")
     assert xyz.shape == (2, 21, 3) and torch.isfinite(xyz).all()
+
+
+_LOAD_PROBE = """
+import sys
+import torch
+from handpose_tpu_torch.infer.export import load_exported_file
+fn = load_exported_file(sys.argv[1])
+xyz, uv = fn(torch.zeros(1, 32, 32, 21), torch.eye(3)[None] * 100,
+             torch.ones(1, 1), torch.tensor([[0.0, 0.0, 0.6]]))
+assert xyz.shape == (1, 21, 3) and uv.shape == (1, 21, 2)
+print(sorted(m for m in sys.modules if m.startswith("handpose_tpu")))
+"""
+
+
+def test_loading_an_artifact_imports_no_model_config_or_train_module(
+        tmp_path):
+    from handpose_tpu_torch import Config
+    from handpose_tpu_torch.infer.export import export_forward, save_exported
+    cfg = Config(model_name="Hand3DPosePriorNetwork", input_channels=21,
+                 input_img_shape=(32, 32), compute_dtype="float32")
+    path = str(tmp_path / "fwd.pt2")
+    save_exported(path, export_forward(cfg, None, 1, device="cpu"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _LOAD_PROBE, path],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert res.returncode == 0, res.stderr
+    modules = eval(res.stdout.strip().splitlines()[-1])
+    assert "handpose_tpu_torch.ops.scoremap_cuda" in modules
+    heavy = [m for m in modules if m.split(".")[:2][-1] in (
+        "models", "config", "train", "nn", "data", "convert", "losses")]
+    assert heavy == [] and "handpose_tpu" not in modules

@@ -3,7 +3,7 @@
 
     python tools/torch_serve_profile.py [--model M] [--batch 256] [--iters 5]
 
-Runs ``handpose_tpu_torch.infer.serve`` (``--model``, default
+Runs ``handpose_tpu_torch.infer.serving.serve`` (``--model``, default
 Hand3DPosePriorNetwork, with the model's default input channels; full
 width, bf16, seeded weights) on a device-resident synthetic RHD batch
 under ``torch.profiler`` and prints the card's name and power limit, the
