@@ -54,9 +54,37 @@
    params, statistics and Adam state must be bit-equal; the Evaluator on
    model_best/, whose MPJPE must equal the run's best exactly; then the
    step's layer times beside the plain step's;
-8. preemption phase: a request inside step 3 pins the checkpoint to
-   epoch 1, and a Worker resumed from it restarts epoch 1 from the
-   preempted state (bit-equal) and runs it to the end;
+8. preemption phase (``steps_per_dispatch=1``): a request inside step 3
+   pins the checkpoint to epoch 1, and a Worker resumed from it restarts
+   epoch 1 from the preempted state (bit-equal) and runs it to the end;
+8'. data parallelism and the Worker's knobs, full width, b256 (the
+   comparisons under deterministic cuDNN, so that two runs of one
+   computation are bit-equal):
+   (a) the augmented Worker inside a process group of one rank over
+       NCCL, two epochs: its state bit-equal (bound 1e-6 of range) to the
+       same Worker's without a group, the launch counts of 6, 40
+       all-reduces of BatchNorm sums a step, its step and the plain
+       Worker's timed in turns;
+   (b) two ranks on the one card (spawned processes, gloo), float32,
+       TF32 off, the global b256 with all six augmentations: two fused
+       steps against the 1-process steps on the same global batch
+       (within twice the yardstick: the 1-process steps with reversed
+       BatchNorm sums),
+       parameters and statistics bit-equal on the ranks, a Worker's
+       padded validation one MPJPE on both, equal (1e-9) to the
+       1-process eval step over the same shards summed in float64, and
+       a preemption request on rank 1 alone stopping both ranks at one
+       boundary, rank 0 alone writing;
+   (c) the Worker with ``remat``: two steps equal to the plain Worker's,
+       K2 80 a step, the step's time and peak memory beside the plain
+       step's; DiffusionHandPose at b8, one remat step equal to the plain
+       one (its gradient within twice the distance of two plain steps),
+       the generator advanced once;
+   (d) ``steps_per_dispatch`` 2 (a full group an epoch) and 8 (all tail):
+       the dispatches and step counts, the states equal, a request while
+       a group is buffered dropping it;
+   (e) ``debug_nans``: the Worker's step time with it on; a NaN planted in
+       one conv kernel raises ``FloatingPointError`` naming the module;
 8a. export phase: the flagship's fused serving program (full width, b256,
    seeded init) exported with ``torch.export`` on the card and saved;
    a process that imports only torch, numpy and the port's ops loads it,
@@ -1088,7 +1116,10 @@ def preemption_phase(dev, root):
     from handpose_tpu_torch.train import PreemptionGuard, Worker, trainer
 
     logs = tempfile.mkdtemp(dir=root)
-    cfg = train_config(root, logs, **{f: True for f in trainer.AUG_FLAGS})
+    # the single-step boundary: JAX's rule at steps_per_dispatch=1 (the
+    # group rule is the groups phase's)
+    cfg = train_config(root, logs, steps_per_dispatch=1,
+                       **{f: True for f in trainer.AUG_FLAGS})
     worker = Worker(cfg, run_dir=logs, device=dev)
     guard = worker.enable_preemption_save(PreemptionGuard(signals=()))
     calls = [0]
@@ -2564,6 +2595,563 @@ def profile_phase(dev, root):
             "kernels_found": found}
 
 
+# ---------------------------------------------------------------------------
+# data parallelism and the Worker's knobs: remat, steps_per_dispatch,
+# debug_nans
+
+
+def _all_augs():
+    from handpose_tpu_torch.train import trainer
+    return {f: True for f in trainer.AUG_FLAGS}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for a comparison of two paths: two
+    runs of one computation are then bit-equal, so the comparison sees the
+    paths and not the order of the card's atomic adds."""
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+
+
+def max_leaf_err(want: dict, got: dict) -> float:
+    """The largest |got - want| of a leaf over that leaf's max |want|."""
+    assert sorted(want) == sorted(got)
+    return max(float(np.abs(np.asarray(got[k], np.float64) - want[k]).max()
+                     / max(float(np.abs(want[k]).max()), 1e-12))
+               for k in want)
+
+
+def worker_state(worker) -> dict:
+    """The Worker's variables and Adam moments, as numpy by name."""
+    from handpose_tpu_torch.convert import export_flax_variables
+    out = export_flax_variables(worker.model)
+    names = dict((id(p), n) for n, p in worker.model.named_parameters())
+    for p, st in worker.state.optimizer.state.items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"adam/{names[id(p)]}/{k}"] = st[k].float().cpu().numpy()
+    return out
+
+
+def ddp_world1_phase(dev, root, raw_host):
+    """(a) The augmented b256 Worker for two epochs of two steps inside a
+    process group of one rank over NCCL, against the same Worker without
+    a process group (both under deterministic cuDNN): the state bit-equal
+    (bound 1e-6 of range), K1/K2/K3 at the Worker's counts and 40
+    all-reduces of BatchNorm sums a step; then the step of each, timed in
+    turns (plain, DDP, DDP, plain) at the default cuDNN settings."""
+    import torch.distributed as dist
+    from handpose_tpu_torch.nn import norm
+    from handpose_tpu_torch.parallel import initialize_distributed
+    from handpose_tpu_torch.train import Worker
+
+    flags = _all_augs()
+    runs, workers = {}, {}
+    with deterministic_cudnn():
+        for name in ("plain", "ddp"):
+            if name == "ddp":
+                initialize_distributed(f"localhost:{_free_port()}", 1, 0)
+                check(dist.get_backend() == "nccl" and
+                      dist.get_world_size() == 1,
+                      "a process group of one rank over NCCL")
+            logs = tempfile.mkdtemp(dir=root)
+            worker = Worker(train_config(root, logs, **flags), run_dir=logs,
+                            device=dev)
+            check(worker.distributed == (name == "ddp"),
+                  f"{name} Worker: distributed={worker.distributed}")
+            torch.cuda.synchronize()
+            reset_counts()
+            norm.SYNC.all_reduces = 0
+            best = worker.run()
+            torch.cuda.synchronize()
+            launches = check_worker_launches(worker, f"{name} Worker")
+            runs[name] = {"state": worker_state(worker), "best": best,
+                          "launches": launches,
+                          "bn_all_reduces": norm.SYNC.all_reduces,
+                          "steps": worker.state.step}
+            workers[name] = worker
+    raw = raw_host.to(dev)
+    ms = {"plain": [], "ddp": []}
+    for name in ("plain", "ddp", "ddp", "plain"):
+        w = workers[name]
+        ms[name].append(cuda_ms(lambda: w.train_step(
+            w.state, raw, generator=w.generator), 3))
+    dist.destroy_process_group()
+    del workers, w
+    torch.cuda.empty_cache()
+    plain, ddp = runs["plain"], runs["ddp"]
+    err = max_leaf_err(plain["state"], ddp["state"])
+    bit = all(np.array_equal(plain["state"][k], ddp["state"][k])
+              for k in plain["state"])
+    check(err <= 1e-6, f"DDP at world 1 over NCCL: params, batch_stats and "
+          f"Adam's moments after 4 steps within {err:.3g} <= 1e-6 of range "
+          f"of the Worker without a process group (bit-equal: {bit})")
+    check(ddp["bn_all_reduces"] == 40 * ddp["steps"]
+          and plain["bn_all_reduces"] == 0,
+          f"40 all-reduces of BatchNorm sums a step under the group "
+          f"({ddp['bn_all_reduces']} in {ddp['steps']} steps), none without")
+    check(abs(ddp["best"] - plain["best"]) <= 1e-6 * plain["best"],
+          f"validation MPJPE {ddp['best']!r} == {plain['best']!r} (1e-6)")
+    print(f"DDP world 1: step {ms['ddp']} ms, plain {ms['plain']} (in "
+          "turns)", flush=True)
+    return {"state_max_leaf_err": err, "bit_equal": bit,
+            "bn_all_reduces": ddp["bn_all_reduces"],
+            "step_ms": ms["ddp"], "plain_step_ms": ms["plain"],
+            "val_mpjpe_mm": ddp["best"],
+            "launches": dict(zip(("scoremap", "moments", "pool_bwd"),
+                                 ddp["launches"]))}, ddp["launches"]
+
+
+def _f32_step_inputs(root, dev):
+    """The phase (b) configuration (f32, all six augmentations), the
+    global raw batch on the card and the seeded model's flat weights."""
+    from handpose_tpu_torch.data.rhd import RHDDataset
+    cfg = train_config(root, "unused", compute_dtype="float32",
+                       **_all_augs())
+    raw = RHDDataset(root, "evaluation", cache_decoded=True).raw_batch(
+        range(BATCH))
+    return cfg, raw
+
+
+def _two_steps(cfg, raw, dev, net_of=None, rank=None):
+    """Two fused steps of the seeded model on ``raw`` (``net_of(model)``
+    replicates it; then ``raw`` is cut to this rank's rows): (losses,
+    step-1 gradients, variables after, K1/K2/K3 launches)."""
+    from handpose_tpu_torch.convert import export_flax_variables
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch.models import build_model
+    from handpose_tpu_torch.parallel import shard_batch
+    from handpose_tpu_torch.train import create_train_state
+    from handpose_tpu_torch.train.steps import make_fused_train_step
+    model = build_model(cfg).to(dev)
+    state = create_train_state(model, cfg, 2)
+    net = model if net_of is None else net_of(model)
+    step = make_fused_train_step(net, cfg, None, serving_kwargs(cfg),
+                                 _all_augs())
+    raw = raw.to(dev)
+    if rank is not None:
+        raw = shard_batch(raw)
+    g = torch.Generator(device=dev).manual_seed(5)
+    losses, grads = [], None
+    reset_counts()
+    for i in range(2):
+        state, ls = step(state, raw, generator=g)
+        losses.append({k: float(v) for k, v in ls.items()})
+        if i == 0:
+            grads = export_flax_variables(model, grads=True)
+    torch.cuda.synchronize()
+    launches = [k.launches for k in _counts()]
+    return losses, grads, export_flax_variables(model), launches
+
+
+def two_rank_child(rank, port, work, root, device="cuda"):
+    """One rank of phase (b), in its own process on the one card: the
+    2-rank fused step over gloo, then a Worker's padded validation, then
+    a Worker whose preemption only rank 1 requests."""
+    import torch.distributed as dist
+    from handpose_tpu_torch.parallel import initialize_distributed, replicate
+    from handpose_tpu_torch.train import PreemptionGuard, Worker
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    out = {}
+    with deterministic_cudnn():
+        cfg, raw = _f32_step_inputs(root, dev)
+        losses, grads, variables, launches = _two_steps(
+            cfg, raw, dev, replicate, rank)
+    np.savez(os.path.join(work, f"rank{rank}.npz"),
+             **{f"grad/{k}": v for k, v in grads.items()},
+             **{f"var/{k}": v for k, v in variables.items()})
+    out.update(losses=losses, launches=launches)
+    torch.cuda.empty_cache()
+    # a Worker of the global b256 on the tree, float32: padded validation
+    wcfg = cfg.replace(max_epoch=1, steps_per_dispatch=1,
+                       save_log_dir=os.path.join(work, f"logs{rank}"))
+    w = Worker(wcfg, device=dev)
+    best = w.run()
+    out["worker"] = {"val_mpjpe": best, "run_dir": w.run_dir,
+                     "step": w.state.step}
+    del w
+    torch.cuda.empty_cache()
+    # preemption requested on rank 1 only, inside its first step
+    w = Worker(wcfg.replace(save_log_dir=os.path.join(work, f"pre{rank}")),
+               device=dev)
+    guard = w.enable_preemption_save(PreemptionGuard(signals=()))
+    calls = [0]
+    step = w.train_step
+
+    def requesting_step(state, raw, **kw):
+        calls[0] += 1
+        if rank == 1 and calls[0] == 1:
+            guard.request()
+        return step(state, raw, **kw)
+
+    w.train_step = requesting_step
+    w.run()
+    out["preempt"] = {"calls": calls[0], "step": w.state.step,
+                      "run_dir": w.run_dir, "requested": guard.requested}
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def two_rank_phase(dev, root):
+    """(b) Two ranks on the one card over gloo (NCCL refuses two ranks on
+    one device), float32, TF32 off, the global b256 (128 a rank) with all
+    six augmentations: two fused steps against the 1-process steps on the
+    same global batch, the yardstick being the 1-process steps with every
+    BatchNorm's rows summed in reverse (plain sums); parameters and
+    running statistics bit-equal on the ranks; a Worker's padded
+    validation one MPJPE on both ranks, equal to the 1-process eval step
+    over the same shards summed in float64 (1e-9); a preemption request
+    on rank 1 alone stops both after one step, rank 0 alone writing."""
+    import torch.multiprocessing as mp
+    from handpose_tpu_torch.data.pipeline import _host_tensors
+    from handpose_tpu_torch.data.rhd import RHDDataset
+    from handpose_tpu_torch.infer import Evaluator
+    from handpose_tpu_torch.ops import moments
+    from handpose_tpu_torch.parallel import HostShardSampler
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, raw = _f32_step_inputs(root, dev)
+    with deterministic_cudnn():
+        ref = _two_steps(cfg, raw, dev)
+        with mock.patch.object(moments, "_moments", lambda x2d, s:
+                               moments.shifted_moments(x2d.flip(0), s)):
+            yard = _two_steps(cfg, raw, dev)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(dir=root)
+    t0 = time.perf_counter()
+    mp.start_processes(two_rank_child,
+                       args=(_free_port(), work, root, dev.type),
+                       nprocs=2, start_method="spawn", join=True)
+    ranks_s = time.perf_counter() - t0
+    outs = []
+    for r in (0, 1):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    arr = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in (0, 1)]
+
+    def part(a, p):
+        return {k[len(p):]: v for k, v in a.items() if k.startswith(p)}
+
+    check(all(np.array_equal(arr[0][k], arr[1][k]) for k in arr[0]),
+          "two ranks: parameters, running statistics (and DDP's mean "
+          "gradients) bit-equal on both")
+
+    def drifts(other_losses, other_grads, other_vars):
+        losses, grads, variables = ref[0], ref[1], ref[2]
+        scale = max(float(np.abs(v).max()) for v in grads.values())
+        loss = max(abs(other_losses[0][k] - v) / abs(v)
+                   for k, v in losses[0].items())
+        grad = max(float(np.abs(other_grads[k] - v).max())
+                   for k, v in grads.items()) / scale
+        stats = max_leaf_err({k: v for k, v in variables.items()
+                              if k.startswith("batch_stats/")},
+                             {k: other_vars[k] for k in variables
+                              if k.startswith("batch_stats/")})
+        lr = cfg.lr
+        n_off = sum(int((np.abs(other_vars[k] - v) > 0.1 * lr).sum())
+                    for k, v in variables.items() if k.startswith("params/"))
+        n_all = sum(v.size for k, v in variables.items()
+                    if k.startswith("params/"))
+        return loss, grad, stats, n_off / n_all
+
+    ours = drifts(outs[0]["losses"], part(arr[0], "grad/"),
+                  part(arr[0], "var/"))
+    yd = drifts(yard[0], yard[1], yard[2])
+    check(ours[0] <= max(1e-6, 2 * yd[0]), f"two ranks vs one process: "
+          f"step-1 losses within {ours[0]:.3g} relative (yardstick "
+          f"{yd[0]:.3g})")
+    # the yardstick, float32 rounding in another order, moves the gradient
+    # by ~3e-4 of the tree's largest and the statistics by ~5e-4 of range
+    # at full width: a fixed 1e-4 would hold the ranks below the float32
+    # floor
+    check(ours[1] <= 2 * yd[1] + 1e-6, f"two ranks vs one process: step-1 "
+          f"gradients within {ours[1]:.3g} of the tree's largest <= 2 x "
+          f"{yd[1]:.3g} (yardstick) + 1e-6")
+    check(ours[2] <= 2 * yd[2] + 1e-6, f"two ranks vs one process: running "
+          f"statistics after 2 steps within {ours[2]:.3g} of range <= 2 x "
+          f"{yd[2]:.3g} (yardstick) + 1e-6")
+    check(ours[3] <= 2 * yd[3] + 1e-3, f"two ranks vs one process: "
+          f"{ours[3]:.3%} of parameter elements' updates differ by more "
+          f"than 0.1 lr <= 2 x {yd[3]:.3%} (yardstick) + 0.1%")
+    per_rank = [o["launches"] for o in outs]
+    check(all(l == [2, 80, 4] for l in per_rank),
+          f"each rank's two steps launched K1, K2, K3 {per_rank} times "
+          "([2, 80, 4])")
+
+    # padded validation: one MPJPE, the 1-process sums over the shards
+    w0, w1 = outs[0]["worker"], outs[1]["worker"]
+    check(w0["val_mpjpe"] == w1["val_mpjpe"] and w0["step"] == 2,
+          f"padded validation: rank 0 {w0['val_mpjpe']!r} == rank 1 "
+          f"{w1['val_mpjpe']!r} after {w0['step']} steps")
+    ckpt = os.path.join(w0["run_dir"], "checkpoint")
+    ev = Evaluator(cfg.replace(save_log_dir=work), weights=ckpt, device=dev)
+    ds = RHDDataset(root, "evaluation", cache_decoded=True)
+    total = count = 0.0
+    for r in (0, 1):
+        sampler = HostShardSampler(len(ds), BATCH, r, 2, shuffle=False,
+                                   seed=cfg.seed)
+        for idx, valid in sampler.local_batches_padded(0):
+            host = ds.raw_batch(idx)
+            host = host._replace(keypoint_vis=host.keypoint_vis
+                                 * valid[:, None])
+            m = ev.eval_step(_host_tensors(host, False).to(dev))
+            total += float(m["mpjpe_sum"])
+            count += float(m["mpjpe_count"])
+    want = total / count
+    whole = ev.evaluate()
+    check(abs(w0["val_mpjpe"] - want) <= 1e-9 * want,
+          f"padded validation {w0['val_mpjpe']!r} == the 1-process eval "
+          f"step over the same shards, summed in float64, {want!r} (1e-9); "
+          f"the Evaluator's whole split {whole!r}")
+    p0, p1 = outs[0]["preempt"], outs[1]["preempt"]
+    check(p1["requested"] and not p0["requested"]
+          and p0["calls"] == p1["calls"] == 1
+          and p0["step"] == p1["step"] == 1,
+          f"preemption on rank 1 alone: both ranks stopped after "
+          f"{p0['calls']}, {p1['calls']} steps")
+    check(os.path.exists(os.path.join(p0["run_dir"], "checkpoint"))
+          and not os.path.exists(os.path.join(work, "pre1"))
+          and not os.path.exists(os.path.join(work, "logs1")),
+          "only rank 0 wrote a run directory and checkpoints")
+    return {"loss_rel": ours[0], "grad_rel": ours[1], "stats_rel": ours[2],
+            "update_beyond_0.1lr": ours[3], "yardstick": list(yd),
+            "val_mpjpe_mm": w0["val_mpjpe"], "val_shards_f64_mm": want,
+            "evaluator_whole_split_mm": whole, "ranks_s": ranks_s,
+            "launches_per_rank": per_rank}, [a + b for a, b in
+                                             zip(*per_rank)]
+
+
+def remat_phase(dev, root, raw_host, plain):
+    """(c) The flagship's Worker at b256 with ``remat=True``: two steps
+    equal to the plain Worker's (deterministic cuDNN; bound 1e-6 of
+    range), K2 80 times a step; the step's time and peak memory beside
+    the plain step's, measured here; DiffusionHandPose at b8 (T 400, DDIM
+    200): one remat step's losses equal to the plain one's, its gradient
+    within twice the distance between two plain steps, the generator's
+    state after it the same."""
+    from handpose_tpu_torch.convert import export_flax_variables
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch.models import build_model
+    from handpose_tpu_torch.train import Worker, create_train_state
+    from handpose_tpu_torch.train.steps import make_fused_train_step
+
+    raw = raw_host.to(dev)
+    runs, launches = {}, None
+    for remat in (False, True):
+        logs = tempfile.mkdtemp(dir=root)
+        worker = Worker(train_config(root, logs, remat=remat), run_dir=logs,
+                        device=dev)
+        with deterministic_cudnn():
+            torch.cuda.synchronize()
+            reset_counts()
+            worker.run_epoch(0, "training")
+            torch.cuda.synchronize()
+        counts = [k.launches for k in _counts()]
+        check(counts == [2, (160 if remat else 80), 4],
+              f"remat={remat} Worker: two steps launched K1, K2, K3 {counts} "
+              f"times (K2 {'80' if remat else '40'} a step)")
+        if remat:
+            launches = counts
+        state = worker_state(worker)
+        # time and peak of a step at the default cuDNN settings
+        g = worker.generator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: worker.train_step(worker.state, raw,
+                                               generator=g), 3)
+        runs[remat] = (state, ms, torch.cuda.max_memory_allocated())
+        del worker
+        torch.cuda.empty_cache()
+    err = max_leaf_err(runs[False][0], runs[True][0])
+    check(err <= 1e-6, f"remat Worker: state after 2 steps within {err:.3g} "
+          "<= 1e-6 of range of the plain Worker's (statistics moved once)")
+    (_, p_ms, p_peak), (_, r_ms, r_peak) = runs[False], runs[True]
+    print(f"remat b{BATCH}: step {r_ms:.3f} ms (plain {p_ms:.3f}), peak "
+          f"{r_peak} B (plain {p_peak})", flush=True)
+
+    # DiffusionHandPose at b8: one step, the draws made once.  Its
+    # backward has atomic adds outside cuDNN, so the remat step is held to
+    # the plain one at the distance between two plain steps (yardstick)
+    cfg = model_config(root, DIFFUSION, logs=tempfile.mkdtemp(dir=root))
+    base = build_model(cfg)
+    raw8 = type(raw)(*(a[:8] for a in raw))
+    out = []
+    with deterministic_cudnn():
+        for remat in (False, False, True):
+            model = build_model(cfg)
+            model.load_state_dict(base.state_dict())
+            model.to(dev)
+            c = cfg.replace(remat=remat)
+            state = create_train_state(model, c)
+            step = make_fused_train_step(model, c, None, serving_kwargs(c))
+            g = torch.Generator(device=dev).manual_seed(3)
+            t0 = time.perf_counter()
+            state, losses = step(state, raw8, generator=g)
+            torch.cuda.synchronize()
+            out.append(({k: float(v) for k, v in losses.items()},
+                        export_flax_variables(model, grads=True),
+                        g.get_state(), time.perf_counter() - t0))
+            del model, state, step
+            torch.cuda.empty_cache()
+    (lp, gp, sp, tp), (_, gq, _, _), (lr, gr, sr, tr) = out
+    scale = max(float(np.abs(v).max()) for v in gp.values())
+
+    def grad_rel(a, b):
+        return max(float(np.abs(a[k] - b[k]).max()) for k in a) / scale
+
+    d_err, d_yard = grad_rel(gp, gr), grad_rel(gp, gq)
+    check(lp == lr and torch.equal(sp, sr) and d_err <= 2 * d_yard + 1e-6,
+          f"DiffusionHandPose b8 remat: losses equal ({lr}), the generator's "
+          f"state after the step the plain step's (draws made once), the "
+          f"gradient within {d_err:.3g} of the tree's largest <= 2 x "
+          f"{d_yard:.3g} (plain vs plain) + 1e-6")
+    return {"step_ms": r_ms, "plain_step_ms": p_ms,
+            "max_memory_allocated_bytes": r_peak,
+            "plain_max_memory_allocated_bytes": p_peak,
+            "plain_step_ms_pr8": 157.941,
+            "plain_max_memory_allocated_bytes_pr8": 17116550656,
+            "state_max_leaf_err": err,
+            "diffusion_b8_step_s": tr, "diffusion_b8_plain_step_s": tp,
+            "diffusion_b8_grad_rel": d_err,
+            "diffusion_b8_grad_rel_plain_vs_plain": d_yard,
+            "launches": dict(zip(("scoremap", "moments", "pool_bwd"),
+                                 launches))}, launches
+
+
+def groups_phase(dev, root):
+    """(d) ``steps_per_dispatch``: k=2 at b256 (one full group an epoch,
+    through ``multi_step``) and the default 8 (every step a tail step),
+    two epochs of training each: the step counts, the states equal
+    (deterministic cuDNN, 1e-6 of range), a group's time beside single
+    steps'; then a request while a group is buffered drops it."""
+    from handpose_tpu_torch.train import PreemptionGuard, Worker
+
+    runs = {}
+    for k in (2, 8):
+        logs = tempfile.mkdtemp(dir=root)
+        worker = Worker(train_config(root, logs, steps_per_dispatch=k),
+                        run_dir=logs, device=dev)
+        calls = {"multi": 0, "single": 0}
+        for name, key in (("multi_step", "multi"), ("train_step", "single")):
+            fn = getattr(worker, name)
+
+            def counted(state, raw, _fn=fn, _key=key, **kw):
+                calls[_key] += 1
+                return _fn(state, raw, **kw)
+
+            setattr(worker, name, counted)
+        with deterministic_cudnn():
+            torch.cuda.synchronize()
+            reset_counts()
+            for epoch in (0, 1):
+                worker.run_epoch(epoch, "training")
+            torch.cuda.synchronize()
+        counts = [c.launches for c in _counts()]
+        check(counts == [4, 160, 8], f"steps_per_dispatch={k}: 4 steps "
+              f"launched K1, K2, K3 {counts} times")
+        want = {"multi": 2, "single": 0} if k == 2 else \
+            {"multi": 0, "single": 4}
+        check(calls == want and worker.state.step == 4,
+              f"steps_per_dispatch={k}: {calls} dispatches for "
+              f"{worker.state.step} steps ({want})")
+        runs[k] = (worker_state(worker), list(worker.step_seconds), counts)
+        del worker
+        torch.cuda.empty_cache()
+    err = max_leaf_err(runs[8][0], runs[2][0])
+    check(err <= 1e-6, f"groups of 2 == single steps: state within "
+          f"{err:.3g} <= 1e-6 of range")
+    # a request while a group is buffered: the group is dropped
+    logs = tempfile.mkdtemp(dir=root)
+    worker = Worker(train_config(root, logs, steps_per_dispatch=2),
+                    run_dir=logs, device=dev)
+    guard = worker.enable_preemption_save(PreemptionGuard(signals=()))
+    batches = worker._epoch_batches
+
+    def requesting(split, epoch):
+        for idx, b in enumerate(batches(split, epoch)):
+            if idx == 1:
+                guard.request()
+            yield b
+
+    worker._epoch_batches = requesting
+    worker.run()
+    saved = torch.load(os.path.join(logs, "checkpoint", "train_state.pt"),
+                       weights_only=True)
+    check(worker.state.step == 0 and saved["epoch"] == 0
+          and saved["step"] == 0,
+          "a request with one batch of a group of 2 buffered: the group "
+          f"dropped (steps {worker.state.step}), the checkpoint pinned to "
+          f"epoch {saved['epoch']}")
+    del worker
+    torch.cuda.empty_cache()
+    return {"k2_step_s": runs[2][1], "k8_step_s": runs[8][1],
+            "k2_median_step_ms_after_first_group": 1e3 * float(np.median(
+                runs[2][1][2:])),
+            "k8_median_step_ms_after_first": 1e3 * float(np.median(
+                runs[8][1][1:])),
+            "state_max_leaf_err": err}, runs[2][2]
+
+
+def debug_nans_phase(dev, root, plain):
+    """(e) ``debug_nans`` on the flagship's Worker at b256: two steps
+    (their time beside the plain Worker's), then a NaN planted in one
+    conv kernel raises ``FloatingPointError`` naming that module."""
+    from handpose_tpu_torch.train import Worker
+
+    logs = tempfile.mkdtemp(dir=root)
+    worker = Worker(train_config(root, logs, debug_nans=True), run_dir=logs,
+                    device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    worker.run_epoch(0, "training")
+    worker.run_epoch(1, "training")
+    torch.cuda.synchronize()
+    counts = [k.launches for k in _counts()]
+    check(counts == [4, 160, 8], f"debug_nans Worker: 4 steps launched K1, "
+          f"K2, K3 {counts} times")
+    med = 1e3 * float(np.median(worker.step_seconds[1:]))
+    conv = worker.model.PosePrior_net.backbone.trunk.BasicBlock_2.Conv_1
+    with torch.no_grad():
+        conv.weight[0, 0, 0, 0] = float("nan")
+    try:
+        worker.run_epoch(2, "training")
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    check(raised is not None and
+          "PosePrior_net.backbone.trunk.BasicBlock_2.Conv_1" in raised,
+          f"a NaN planted in PosePrior_net's BasicBlock_2.Conv_1 kernel "
+          f"raised FloatingPointError: {raised}")
+    print(f"debug_nans: median step {med:.1f} ms (plain Worker "
+          f"{plain['median_step_ms_after_first']:.1f})", flush=True)
+    del worker
+    torch.cuda.empty_cache()
+    return {"median_step_ms_after_first": med,
+            "plain_median_step_ms_after_first":
+                plain["median_step_ms_after_first"],
+            "error": raised}, counts
+
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -2625,6 +3213,16 @@ def main():
         augmented, (k1_aug, k2_aug, k3_aug), aug_run = \
             augmented_training_phase(dev, root, raw_host, training)
         preemption = preemption_phase(dev, root)
+        t_dp = time.perf_counter()
+        ddp_world1, k_ddp = ddp_world1_phase(dev, root, raw_host)
+        two_ranks, k_ranks = two_rank_phase(dev, root)
+        remat, k_remat = remat_phase(dev, root, raw_host, training)
+        groups, k_groups = groups_phase(dev, root)
+        debug_nans, k_nans = debug_nans_phase(dev, root, training)
+        dp_phases_s = time.perf_counter() - t_dp
+        print(f"DDP, two ranks, remat, groups and debug_nans phases: "
+              f"{dp_phases_s:.1f} s", flush=True)
+        torch.cuda.empty_cache()
         t_new = time.perf_counter()
         exported, k1_export = export_phase(dev, root, raw_host)
         ops_library = ops_phase(dev)
@@ -2692,7 +3290,9 @@ def main():
         f"{DIFFUSION}_serving": k1_diff_serving,
         f"{DIFFUSION}_training": diff_launches[0],
         "export": k1_export, "infer_cli": k1_infer_cli,
-        "profile_worker": profile_launches[0]}
+        "profile_worker": profile_launches[0], "ddp_world1": k_ddp[0],
+        "two_ranks": k_ranks[0], "remat": k_remat[0],
+        "groups_k2": k_groups[0], "debug_nans": k_nans[0]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {
         "training": k2_train, "augmented_training": k2_aug,
@@ -2701,7 +3301,9 @@ def main():
         "k7s2_step": stem_launches[1],
         **{f"{m}_training": fm_launches[m][1] for m in FK_MANO_MODELS},
         f"{DIFFUSION}_training": diff_launches[1],
-        "profile_worker": profile_launches[1]}
+        "profile_worker": profile_launches[1], "ddp_world1": k_ddp[1],
+        "two_ranks": k_ranks[1], "remat": k_remat[1],
+        "groups_k2": k_groups[1], "debug_nans": k_nans[1]}
     k2["launches"] = sum(k2["launches_by_path"].values())
     k3["launches_by_path"] = {
         "training": k3_train, "augmented_training": k3_aug,
@@ -2710,10 +3312,13 @@ def main():
         "k7s2_step": stem_launches[2],
         **{f"{m}_training": fm_launches[m][2] for m in FK_MANO_MODELS},
         f"{DIFFUSION}_training": diff_launches[2],
-        "profile_worker": profile_launches[2]}
+        "profile_worker": profile_launches[2], "ddp_world1": k_ddp[2],
+        "two_ranks": k_ranks[2], "remat": k_remat[2],
+        "groups_k2": k_groups[2], "debug_nans": k_nans[2]}
     k3["launches"] = sum(k3["launches_by_path"].values())
     k3["launches_by_variant"] = training["pool_bwd_launches_by_variant"]
     for record in (decode, serving, training, augmented, preemption,
+                   ddp_world1, two_ranks, remat, groups, debug_nans,
                    ih_serving, ih_training, r50_serving, stems,
                    *r50_training.values(), fk_mano, *fm_serving.values(),
                    *fm_training.values(), diffusion, diff_serving,
@@ -2726,6 +3331,12 @@ def main():
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"augmented_training": augmented}), flush=True)
     print(json.dumps({"preemption": preemption}), flush=True)
+    groups["phases_s"] = dp_phases_s
+    print(json.dumps({"ddp_world1": ddp_world1}), flush=True)
+    print(json.dumps({"two_ranks": two_ranks}), flush=True)
+    print(json.dumps({"remat": remat}), flush=True)
+    print(json.dumps({"steps_per_dispatch": groups}), flush=True)
+    print(json.dumps({"debug_nans": debug_nans}), flush=True)
     print(json.dumps({"export": exported}), flush=True)
     print(json.dumps({"ops_library": ops_library}), flush=True)
     print(json.dumps({"infer_cli": infer_cli}), flush=True)

@@ -90,13 +90,32 @@ def raw_device_batches(dataset, batch_size: int, device: torch.device, *,
     numpy's copies release the interpreter lock) and pins; the calling
     thread issues the copies to the card.
     """
+    yield from sampled_device_batches(
+        dataset, epoch_index_chunks(len(dataset), batch_size, shuffle, seed,
+                                    drop_remainder), device, depth=depth)
+
+
+def sampled_device_batches(dataset, chunks, device: torch.device, *,
+                           depth: int = 2) -> Iterator:
+    """:func:`raw_device_batches` over given index ``chunks`` (a
+    sampler's, ``parallel.HostShardSampler``): each an index list, or an
+    ``(indices, valid)`` pair whose False rows (padding) get their
+    keypoint visibility zeroed, so they weigh nothing in the MPJPE sums
+    and the masked losses."""
     device = torch.device(device)
     pin = device.type == "cuda"
-    chunks = epoch_index_chunks(len(dataset), batch_size, shuffle, seed,
-                                drop_remainder)
 
-    def collate(idx):
-        return _host_tensors(dataset.raw_batch(idx), pin)
+    def collate(chunk):
+        if isinstance(chunk, tuple):
+            idx, valid = chunk
+            raw = dataset.raw_batch(idx)
+            if not valid.all():
+                vis = np.asarray(raw.keypoint_vis)
+                raw = raw._replace(keypoint_vis=vis * valid.reshape(
+                    (-1,) + (1,) * (vis.ndim - 1)).astype(vis.dtype))
+        else:
+            raw = dataset.raw_batch(chunk)
+        return _host_tensors(raw, pin)
 
     for raw in prefetch_map(collate, chunks, depth=depth):
         yield raw.to(device, non_blocking=pin)

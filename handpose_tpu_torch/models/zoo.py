@@ -256,6 +256,24 @@ class DiffusionHandPose(_ResNet50Model):
         self.bone_angle_pred_model = BoneAnglePrediction()
         self.bone_length_pred_model = BoneLengthPrediction()
 
+    @property
+    def trains_every_parameter(self) -> bool:
+        """Whether a training forward reaches every parameter: without
+        the sample in training the bone heads get no gradient (DDP must
+        then look for unused parameters)."""
+        return self.cfg.diffusion_sample_in_train
+
+    def draws(self, batch_size: int, generator: torch.Generator,
+              skip=()) -> dict:
+        """What a forward with ``pose_x0`` in the current mode draws from
+        ``generator`` (``DiffusionJointEstimation.draws``), made ahead of
+        it: a step takes the global batch's draws and its own rows of
+        them, and a rematerialised forward replays them."""
+        return self.diff_model.draws(
+            batch_size, generator,
+            sample=not self.training or self.cfg.diffusion_sample_in_train,
+            skip=skip)
+
     def forward(self, img: torch.Tensor, camera_intrinsic_matrix=None,
                 index_root_bone_length=None, keypoint_xyz_root=None,
                 pose_x0=None, generator: Optional[torch.Generator] = None,

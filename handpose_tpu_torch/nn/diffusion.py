@@ -810,6 +810,36 @@ class DiffusionJointEstimation(nn.Module):
         return self.diffusion.loss(self.unet, x0, condition, generator,
                                    t=t, noise=noise)
 
+    def draws(self, batch_size: int, generator: torch.Generator,
+              loss: bool = True, sample: bool = True, skip=()) -> dict:
+        """The draws :meth:`forward` (``loss``) and then :meth:`sample`
+        make from ``generator`` for ``batch_size`` rows, made here in
+        their order, with their shapes and dtypes, so that the stream (and
+        ``generator``'s state after) is the one of the forward drawing
+        them itself; as the forward takes them injected (``diff_t``,
+        ``diff_noise``, ``init_noise``, ``step_noise``), minus the names
+        in ``skip``, which are given and not drawn."""
+        d, B = self.diffusion, batch_size
+        shape = (B, d.seq_length, d.channels)
+        like = {"device": generator.device, "generator": generator}
+        out = {}
+        if loss:
+            if "diff_t" not in skip:
+                out["diff_t"] = torch.randint(0, d.num_timesteps, (B,),
+                                              **like)
+            if "diff_noise" not in skip:
+                out["diff_noise"] = torch.randn(shape, **like).transpose(1, 2)
+        if sample:
+            if "init_noise" not in skip:
+                out["init_noise"] = torch.randn(shape, **like).transpose(1, 2)
+            steps = (d.num_timesteps if not d.is_ddim_sampling
+                     else d.sampling_timesteps if d.eta != 0.0 else 0)
+            if steps and "step_noise" not in skip:
+                out["step_noise"] = torch.stack(
+                    [torch.randn(shape, **like) for _ in range(steps)]
+                ).transpose(2, 3)
+        return out
+
     def hoists(self, batch_size: int) -> bool:
         if self.sampler_hoist == "auto":
             return batch_size <= 32

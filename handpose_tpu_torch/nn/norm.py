@@ -30,6 +30,16 @@ batch``, keeping the biased batch variance (torch ``BatchNorm2d`` keeps
 the unbiased one at momentum 0.1).  Parameters are ``weight``/``bias``
 (flax ``scale``/``bias``), the buffers ``running_mean``/``running_var``
 (flax ``mean``/``var``).
+
+Global statistics (``set_global_stats``, which ``parallel.replicate``
+turns on): in train mode each rank's sums are all-reduced over the
+process group before ``mean``/``var`` are formed (one all-reduce of the
+packed (2, C) sums a BN, two in 'stable', whose second pass takes the
+global mean as its shift; 'shifted''s running mean is equal on every
+rank), through the differentiable ``parallel.all_reduce_sum``: the
+batch statistics of the global batch, as the JAX package's ``psum`` over
+its sharded batch.  Every rank holds the same number of rows, so the
+row count is ``n * world``.  ``SYNC.all_reduces`` counts them.
 """
 
 from __future__ import annotations
@@ -40,10 +50,21 @@ import torch
 from torch import nn
 
 from ..ops.moments import fused_shifted_moments, rows_view
+from ..parallel.distributed import all_reduce_sum, world
 
 BN_MODES = ("stable", "fast", "shifted")
 MOMENTUM = 0.9          # flax nn.BatchNorm's, on the running value
 EPSILON = 1e-5
+
+
+class _SyncCount:
+    """The all-reduces of BatchNorm sums this process issued."""
+
+    def __init__(self):
+        self.all_reduces = 0
+
+
+SYNC = _SyncCount()
 
 
 class BatchNorm(nn.Module):
@@ -58,6 +79,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.global_stats = False
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         with torch.no_grad():
@@ -66,22 +88,35 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def _sum(self, *sums: torch.Tensor):
+        """``sums`` summed over the ranks, packed into one all-reduce, with
+        global statistics; else as they are."""
+        if not self.global_stats:
+            return sums
+        SYNC.all_reduces += 1
+        return all_reduce_sum(torch.stack(sums)).unbind(0)
+
     def batch_stats(self, x: torch.Tensor):
-        """(mean, var) of the batch, float32 (C,), differentiable."""
+        """(mean, var) of the batch (the global batch with global
+        statistics), float32 (C,), differentiable."""
         x2d = rows_view(x)
-        n = x2d.shape[0]
+        n = x2d.shape[0] * (world() if self.global_stats else 1)
         zero = torch.zeros_like(self.running_mean)
         if self.mode == "shifted":
             shift = self.running_mean.clone()
-            s, ss = fused_shifted_moments(x2d, shift)
+            s, ss = self._sum(*fused_shifted_moments(x2d, shift))
             mu = s / n
             var = torch.clamp(ss / n - mu * mu, min=0.0)
             return shift + mu, var
         s, ss = fused_shifted_moments(x2d, zero)
-        mean = s / n
         if self.mode == "fast":
+            s, ss = self._sum(s, ss)
+            mean = s / n
             return mean, torch.clamp(ss / n - mean * mean, min=0.0)
+        (s,) = self._sum(s)
+        mean = s / n
         _, ss = fused_shifted_moments(x2d, mean)
+        (ss,) = self._sum(ss)
         return mean, torch.clamp(ss / n, min=0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -106,6 +141,15 @@ class BatchNorm(nn.Module):
             # before the affine step (handpose_tpu/nn/norm.py:121-125)
             y, mul, bias = (t.to(self.dtype) for t in (y, mul, bias))
         return (y * mul + bias).to(self.dtype)
+
+
+def set_global_stats(model: nn.Module, on: bool = True) -> nn.Module:
+    """Turn global (process-group) batch statistics on or off for every
+    BatchNorm of ``model``; returns it."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.global_stats = on
+    return model
 
 
 # the class the JAX package names for the 'shifted' mode

@@ -15,6 +15,12 @@ Resume keeps the stored params whose path and shape exist in the current
 model (``strict=False``) and calls it a finetune unless the key sets are
 equal and every key matched; only an exact match restores the batch
 statistics, the optimizer, the epoch and the best MPJPE.
+
+The names are the flax names of the model inside whatever wraps it for
+training (DDP, ``Remat``): a ``module.`` prefix never reaches
+``variables.npz``, where it would turn every resume into a finetune.  In a
+data-parallel run the lead rank writes and every rank resumes from the
+same directory (the Worker).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from ..convert import export_flax_variables, load_flax_variables
 from .state import TrainState
+from .steps import unwrap
 
 CKPT_LAST = "checkpoint"
 CKPT_BEST = "model_best"
@@ -41,7 +48,7 @@ def _write_dir(path: str, state: TrainState, epoch: int,
     reader never sees a half-written file."""
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, VARIABLES + ".tmp.npz")
-    np.savez(tmp, **export_flax_variables(state.model))
+    np.savez(tmp, **export_flax_variables(unwrap(state.model)))
     os.replace(tmp, os.path.join(path, VARIABLES))
     tmp = os.path.join(path, TRAIN_STATE + ".tmp")
     torch.save({"epoch": int(epoch),
@@ -78,7 +85,8 @@ def filtered_resume(state: TrainState, ckpt_path: str
     reference's semantics; returns ``(state, start_epoch, best_mpjpe,
     is_finetune)``."""
     loaded = load_variables(ckpt_path)
-    cur = export_flax_variables(state.model)
+    model = unwrap(state.model)
+    cur = export_flax_variables(model)
 
     def part(flat, coll):
         return {k: v for k, v in flat.items() if k.startswith(coll + "/")}
@@ -90,7 +98,7 @@ def filtered_resume(state: TrainState, ckpt_path: str
     merged = dict(cur)
     merged.update(matched)
     if not full_match:
-        load_flax_variables(state.model, merged)
+        load_flax_variables(model, merged)
         return state, 0, float(np.inf), True
     # exact architecture: the reference's resume branch
     # (trainval.py:196-208)
@@ -98,7 +106,7 @@ def filtered_resume(state: TrainState, ckpt_path: str
     if set(cur_bs) == set(loaded_bs) and all(
             v.shape == cur_bs[k].shape for k, v in loaded_bs.items()):
         merged.update(loaded_bs)
-    load_flax_variables(state.model, merged)
+    load_flax_variables(model, merged)
     train = torch.load(os.path.join(ckpt_path, TRAIN_STATE),
                        map_location="cpu", weights_only=True)
     try:

@@ -4,8 +4,9 @@ Port of ``handpose_tpu/train/steps.py``: ``_forward`` (:44-64),
 ``compute_losses`` with the per-model loss gates (:67-115), ``_accum_grads``
 (:132-174), ``make_train_step`` (:177-199), ``_eval_metrics``
 (:202-223), ``_accum_eval`` with its gcd rule (:226-259),
-``make_eval_step`` (:262-274), and the fused steps with the train-time
-augmentations (:277-303, :345-383).  A fused step takes the
+``make_eval_step`` (:262-274), the fused steps with the train-time
+augmentations (:277-303, :345-383), ``_maybe_remat`` (:118-129) and
+``make_fused_multi_step`` (:305-342).  A fused step takes the
 preprocessing it is given or, with None, the one of the raw batch's type
 (RHD or InterHand2.6M); ``pck_thresholds`` adds the PCK sums to the eval
 metrics.  PyTorch runs eagerly, so a "fused"
@@ -14,58 +15,199 @@ program.
 A train step returns ``(state, losses)`` like the JAX step; it updates
 the model's parameters, Adam's moments and the BatchNorm statistics in
 place, where JAX returns a new state.
+
+Data parallel: a train step made on ``parallel.replicate(model)`` (DDP)
+is one rank's part of JAX's global program.  It takes this rank's rows
+of the global batch; BatchNorm's statistics are global
+(``nn/norm.py``); each model output and each label the loss reads is
+gathered over the ranks (``parallel.gather_rows``), so every rank
+computes the loss of the global batch (JAX's masked means over it), logs
+it and checks it; the gather's backward sums the ranks' identical
+gradients and DDP's mean over the ranks divides that back out.  The
+augmentations' and the model's draws are made for the global batch from
+the generator (equal on every rank) and cut to the rank's rows, and
+``draws``/``model_draws`` given to the step are the global batch's.
+
+``cfg.remat`` runs the model's forward under ``torch.utils.checkpoint``
+(:class:`Remat`); ``cfg.debug_nans`` raises ``FloatingPointError``
+naming the first module that made a NaN (``train/nans.py``).
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager, nullcontext
+from dataclasses import fields, replace
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
-from ..data.preprocess import (AugmentDraws, RawBatch, model_input,
-                               preprocess_fn_for)
+from ..data.preprocess import (AugmentDraws, RawBatch, draw_augmentations,
+                               model_input, preprocess_fn_for)
 from ..losses import LossCalculation, masked_l2_loss, rot_mat_mse
 from ..metrics import masked_sum_count, mpjpe, pck_sum_count
+from ..nn.norm import BatchNorm
 from ..ops.projection import rel_normed_to_absolute
+from ..parallel.distributed import gather_rows, world
+from ..parallel.mesh import shard_batch
+from .nans import nan_trap
 from .state import TrainState
 
 _TRAINER_B = ("Hand3DPoseNet", "Hand3DPosePriorNetwork")
 
 
-def _check_remat(cfg: Config):
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat (activation recomputation) waits for ROADMAP.md queue 1, "
-            "item 7 (torch.utils.checkpoint)")
+# the labels compute_losses reads
+_LOSS_LABELS = ("keypoint_vis21", "keypoint_xyz21", "keypoint_uv21",
+                "right_hand_mask", "kp_coord_xyz21_rel_can", "rot_mat")
 
 
-def _draw_kwargs(model, batch: dict, generator, model_draws) -> dict:
+def _running_stats(bns) -> list:
+    return [(b.running_mean.clone(), b.running_var.clone()) for b in bns]
+
+
+def _load_running_stats(bns, stats) -> None:
+    with torch.no_grad():
+        for b, (mean, var) in zip(bns, stats):
+            b.running_mean.copy_(mean)
+            b.running_var.copy_(var)
+
+
+class Remat(nn.Module):
+    """``module``'s forward with activation recomputation (JAX's
+    ``jax.checkpoint`` around the forward): ``torch.utils.checkpoint``,
+    non-reentrant, keeps the inputs and recomputes the forward in the
+    backward.  The recompute runs each train-mode BatchNorm again: it
+    finds the running statistics the forward found (so 'shifted' takes
+    the same shift), and leaves the forward's update of them in place,
+    so they move once a step.  The draws of a stochastic model are made
+    ahead, outside (:func:`_draw_kwargs`), so the recompute takes them as
+    given."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.module = module
+
+    def forward(self, *args, **kwargs):
+        bns = [m for m in self.module.modules() if isinstance(m, BatchNorm)]
+        before = _running_stats(bns)
+
+        @contextmanager
+        def recompute():
+            after = _running_stats(bns)
+            _load_running_stats(bns, before)
+            try:
+                yield
+            finally:
+                _load_running_stats(bns, after)
+
+        return checkpoint(lambda *a: self.module(*a, **kwargs), *args,
+                          use_reentrant=False,
+                          context_fn=lambda: (nullcontext(), recompute()))
+
+
+def unwrap(net: nn.Module) -> nn.Module:
+    """The model inside its DDP and :class:`Remat` wrappers."""
+    while isinstance(net, (DistributedDataParallel, Remat)):
+        net = net.module
+    return net
+
+
+def _sharded(net: nn.Module) -> bool:
+    return isinstance(net, DistributedDataParallel)
+
+
+def train_module(model: nn.Module, cfg: Config) -> nn.Module:
+    """``model`` as a train step runs it: under :class:`Remat` with
+    ``cfg.remat``.  Replicate this (``parallel.replicate``), not the
+    model, so that DDP's forward holds the checkpoint."""
+    return Remat(model) if cfg.remat else model
+
+
+def _train_net(model: nn.Module, cfg: Config) -> nn.Module:
+    inner = model.module if _sharded(model) else model
+    if not cfg.remat or isinstance(inner, Remat):
+        return model
+    if _sharded(model):
+        raise ValueError("remat under DDP: replicate train_module(model, "
+                         "cfg), not the model")
+    return Remat(model)
+
+
+def _draw_kwargs(model, batch: dict, generator, model_draws, rows: int,
+                 sharded: bool = False) -> dict:
     """What a model that draws random numbers (``model.stochastic``)
-    takes besides its inputs: ``generator``, and the draws injected by
-    the batch's ``_inject_<name>`` entries (the JAX package's injection
-    surface, ``handpose_tpu/train/steps.py:50-56``) or by ``model_draws``
-    ({name: whole-batch tensor}).  Other models take nothing."""
+    takes besides its inputs: the draws injected by the batch's
+    ``_inject_<name>`` entries (the JAX package's injection surface,
+    ``handpose_tpu/train/steps.py:50-56``) or by ``model_draws`` ({name:
+    whole-batch tensor}), and the rest drawn here from ``generator``, in
+    the order the forward would draw them (``model.draws``).  Sharded,
+    ``model_draws`` and the drawn ones are the global batch's (``rows``
+    a rank), cut to this rank's rows.  Other models take nothing."""
     if not getattr(model, "stochastic", False):
         return {}
     kw = {k[len("_inject_"):]: v for k, v in batch.items()
           if k.startswith("_inject_")}
-    kw.update(model_draws or {})
-    return dict(kw, generator=generator)
+    given = dict(model_draws or {})
+    w = world() if sharded else 1
+    if generator is not None:
+        given.update(model.draws(rows * w, generator,
+                                 skip=set(kw) | set(given)))
+    if sharded:
+        given = {k: shard_batch(v, axis=1 if k == "step_noise" else 0)
+                 for k, v in given.items()}
+    return {**given, **kw}
 
 
 def _forward(model, batch: dict, cfg: Config, train: bool, generator=None,
              model_draws: Optional[dict] = None):
     """The model on a preprocessed sample dict, in train mode (batch
-    statistics, running statistics updated) or eval mode; a stochastic
-    model draws from ``generator`` unless its draws are injected."""
-    model.train(train)
+    statistics, running statistics updated; ``model`` as the train step
+    runs it, replicated or rematerialised) or eval mode (the plain
+    module); a stochastic model draws from ``generator`` unless its draws
+    are injected."""
+    net = model if train else unwrap(model)
+    net.train(train)
     inp = model_input(batch, cfg.input_channels)
     pose_x0 = batch["keypoint_xyz21_rel_normed"].reshape(inp.shape[0], 1, -1)
-    return model(inp, batch["camera_intrinsic_matrix"],
-                 batch["keypoint_scale"], batch["keypoint_xyz_root"], pose_x0,
-                 **_draw_kwargs(model, batch, generator, model_draws))
+    # a replicated train step, or an eval step under a process group of
+    # several ranks (the Worker's padded validation), holds a rank's rows
+    sharded = _sharded(model) if train else world() > 1
+    return net(inp, batch["camera_intrinsic_matrix"],
+               batch["keypoint_scale"], batch["keypoint_xyz_root"], pose_x0,
+               **_draw_kwargs(unwrap(model), batch, generator, model_draws,
+                              inp.shape[0], sharded))
+
+
+def _gathered(out, batch: dict):
+    """(out, batch) over the global batch: each output, and each label the
+    loss reads, gathered over the ranks; a per-batch mean output
+    (``diffusion_loss``) becomes the mean of the ranks' equal-sized
+    batches."""
+    def gather(v):
+        if v is None:
+            return None
+        if v.ndim == 0:
+            return gather_rows(v.reshape(1)).mean()
+        return gather_rows(v)
+
+    out = replace(out, **{f.name: gather(getattr(out, f.name))
+                          for f in fields(out)})
+    return out, {k: gather_rows(batch[k]) for k in _LOSS_LABELS
+                 if k in batch}
+
+
+@contextmanager
+def _watch(model, cfg: Config):
+    """``cfg.debug_nans``: the model's NaN trap watches the block."""
+    if not cfg.debug_nans:
+        yield
+        return
+    with nan_trap(model).watch():
+        yield
 
 
 def forward(model, batch: dict, cfg: Config, generator=None,
@@ -155,9 +297,23 @@ def _split(data, k: int):
             for i in range(k)]
 
 
+def _global_aug_draws(raw: RawBatch, flags: dict, pp_kwargs: dict,
+                      generator) -> AugmentDraws:
+    """The augmentation draws of the global batch (every rank's rows) for
+    the hand-cropped scoremaps of the Worker's preprocessing, made from
+    ``generator`` as ``preprocess_batch`` makes them for one batch."""
+    if generator is None:
+        raise ValueError(f"augmentations {sorted(flags)} need draws or a "
+                         "generator")
+    crop = pp_kwargs.get("crop_size", 256)
+    return draw_augmentations(list(flags), (
+        raw.image.shape[0] * world(), tuple(raw.image.shape[1:3]),
+        (crop, crop), 0), generator)
+
+
 def _accum_grads(grad_one: Callable, state: TrainState, data,
                  k: int, draws: Optional[AugmentDraws] = None,
-                 model_draws: Optional[dict] = None
+                 model_draws: Optional[dict] = None, net=None
                  ) -> Dict[str, torch.Tensor]:
     """Gradients over ``data`` into the parameters' ``.grad``, optionally
     over ``k`` sequential microbatches (``cfg.grad_accum``); returns the
@@ -173,13 +329,19 @@ def _accum_grads(grad_one: Callable, state: TrainState, data,
     ``draws`` and the model's injected ``model_draws`` for the whole
     batch are cut along the batch axis with it;
     without them each microbatch draws its own, as the JAX step splits its
-    key per microbatch."""
+    key per microbatch.  A replicated ``net`` (DDP) all-reduces the
+    gradients once, in the last microbatch's backward."""
     state.optimizer.zero_grad(set_to_none=True)
     if k == 1:
         return grad_one(data, draws, model_draws)
-    parts = [grad_one(*a) for a in zip(
-        _split(data, k), [None] * k if draws is None else draws.split(k),
-        [None] * k if model_draws is None else _split(model_draws, k))]
+    no_sync = net.no_sync if net is not None and _sharded(net) \
+        else nullcontext
+    parts = []
+    for i, a in enumerate(zip(
+            _split(data, k), [None] * k if draws is None else draws.split(k),
+            [None] * k if model_draws is None else _split(model_draws, k))):
+        with no_sync() if i < k - 1 else nullcontext():
+            parts.append(grad_one(*a))
     with torch.no_grad():
         for p in state.model.parameters():
             if p.grad is not None:
@@ -188,14 +350,17 @@ def _accum_grads(grad_one: Callable, state: TrainState, data,
             for key in parts[0]}
 
 
-def _grad_one_on(model, cfg: Config) -> Callable:
+def _grad_one_on(net, cfg: Config) -> Callable:
     """The gradient closure on a preprocessed sample dict (augmented, if
     at all, when it was made), ``grad_one(batch, generator=None,
-    model_draws=None)``."""
+    model_draws=None)``; ``net`` as :func:`_train_net` gives it."""
     def grad_one(batch: dict, generator=None, model_draws=None) -> dict:
-        out = _forward(model, batch, cfg, True, generator, model_draws)
-        losses = compute_losses(out, batch, cfg)
-        losses["loss"].backward()
+        with _watch(unwrap(net), cfg):
+            out = _forward(net, batch, cfg, True, generator, model_draws)
+            if _sharded(net):
+                out, batch = _gathered(out, batch)
+            losses = compute_losses(out, batch, cfg)
+            losses["loss"].backward()
         return {k: v.detach() for k, v in losses.items()}
 
     return grad_one
@@ -205,15 +370,17 @@ def make_train_step(model, cfg: Config):
     """``train_step(state, batch, generator=None, model_draws=None)`` on
     a preprocessed sample dict -> ``(state, losses)``; a stochastic
     model draws from ``generator`` unless ``model_draws`` (or the batch's
-    ``_inject_*`` entries) give its draws."""
-    _check_remat(cfg)
-    grad_one = _grad_one_on(model, cfg)
+    ``_inject_*`` entries) give its draws.  ``model`` may be replicated
+    (``parallel.replicate(train_module(model, cfg))``); the batch is
+    then this rank's rows."""
+    net = _train_net(model, cfg)
+    grad_one = _grad_one_on(net, cfg)
 
     def train_step(state: TrainState, batch: dict, generator=None,
                    model_draws: Optional[dict] = None):
         losses = _accum_grads(
             lambda b, _, md: grad_one(b, generator, md), state, batch,
-            cfg.grad_accum, model_draws=model_draws)
+            cfg.grad_accum, model_draws=model_draws, net=net)
         return state.apply_gradients(), losses
 
     return train_step
@@ -228,18 +395,24 @@ def _make_fused_grad_one(model, cfg: Config, preprocess_fn,
     on (no gradient: labels and network input, the JAX step's
     ``stop_gradient``), then forward and backward; augmentations, then
     the model, draw from ``generator`` unless given their draws."""
-    _check_remat(cfg)
-    grad_one = _grad_one_on(model, cfg)
+    net = _train_net(model, cfg)
+    grad_one = _grad_one_on(net, cfg)
     flags = {k: True for k, v in (aug_flags or {}).items() if v}
+    sharded = _sharded(net)
 
     def fused_grad_one(raw: RawBatch, draws=None, generator=None,
                        model_draws=None) -> dict:
         fn = preprocess_fn or preprocess_fn_for(raw)
+        if sharded and flags:
+            if draws is None:
+                draws = _global_aug_draws(raw, flags, pp_kwargs, generator)
+            draws = shard_batch(draws)
         with torch.no_grad():
             batch = fn(raw, **pp_kwargs, **flags, draws=draws,
                        generator=generator)
         return grad_one(batch, generator, model_draws)
 
+    fused_grad_one.net = net
     return fused_grad_one
 
 
@@ -252,7 +425,9 @@ def make_fused_train_step(model, cfg: Config, preprocess_fn,
     stochastic model draw from ``generator`` (a ``torch.Generator`` on
     the batch's device), or take ``draws`` and ``model_draws``
     ({``init_noise``, ``diff_t``, ``diff_noise``: whole-batch tensors})
-    for the whole batch (the tests inject the JAX step's)."""
+    for the whole batch (the tests inject the JAX step's).  ``model`` may
+    be replicated (see :func:`make_train_step`): ``raw`` is then this
+    rank's rows, ``draws`` and ``model_draws`` the global batch's."""
     grad_one = _make_fused_grad_one(model, cfg, preprocess_fn, pp_kwargs,
                                     aug_flags)
 
@@ -261,10 +436,41 @@ def make_fused_train_step(model, cfg: Config, preprocess_fn,
                    model_draws: Optional[dict] = None):
         losses = _accum_grads(
             lambda r, d, md: grad_one(r, d, generator, md), state, raw,
-            cfg.grad_accum, draws, model_draws)
+            cfg.grad_accum, draws, model_draws, net=grad_one.net)
         return state.apply_gradients(), losses
 
     return train_step
+
+
+def make_fused_multi_step(model, cfg: Config, preprocess_fn,
+                          pp_kwargs: dict, aug_flags: Optional[dict] = None,
+                          k: Optional[int] = None):
+    """``multi_step(state, raw_stack, generator=None)`` -> ``(state,
+    losses)``: ``k`` (``cfg.steps_per_dispatch``) fused train steps of
+    :func:`make_fused_train_step` over a raw batch stacked on a leading
+    k axis, in order, each drawing its augmentations (and a stochastic
+    model its draws) from ``generator`` after the step before; the loss
+    dicts come stacked on a leading k axis.  The same arithmetic as k
+    single steps (JAX's ``lax.scan`` of them in one program: the Worker
+    dispatches a full group at once and checks preemption between
+    groups)."""
+    k = k or cfg.steps_per_dispatch
+    step = make_fused_train_step(model, cfg, preprocess_fn, pp_kwargs,
+                                 aug_flags)
+
+    def multi_step(state: TrainState, raw_stack: RawBatch, generator=None):
+        if raw_stack[0].shape[0] != k:
+            raise ValueError(f"a group of {raw_stack[0].shape[0]} batches, "
+                             f"not steps_per_dispatch={k}")
+        per = []
+        for i in range(k):
+            state, losses = step(state, type(raw_stack)(
+                *(a[i] for a in raw_stack)), generator=generator)
+            per.append(losses)
+        return state, {key: torch.stack([p[key] for p in per])
+                       for key in per[0]}
+
+    return multi_step
 
 
 def _absolute_xyz(out, batch: dict):
@@ -338,8 +544,9 @@ def make_eval_step(model, cfg: Config,
     @torch.inference_mode()
     def eval_step(batch: dict, generator=None) -> dict:
         def metrics_one(batch_i: dict) -> dict:
-            return _eval_metrics(forward(model, batch_i, cfg, generator),
-                                 batch_i, cfg, pck_thresholds)
+            with _watch(unwrap(model), cfg):
+                return _eval_metrics(forward(model, batch_i, cfg, generator),
+                                     batch_i, cfg, pck_thresholds)
 
         return _accum_eval(metrics_one, batch, cfg.grad_accum)
 
@@ -361,8 +568,9 @@ def make_fused_eval_step(model, cfg: Config, preprocess_fn,
         def metrics_one(raw_i: RawBatch) -> dict:
             fn = preprocess_fn or preprocess_fn_for(raw_i)
             batch = fn(raw_i, **pp_kwargs)
-            return _eval_metrics(forward(model, batch, cfg, generator),
-                                 batch, cfg, pck_thresholds)
+            with _watch(unwrap(model), cfg):
+                return _eval_metrics(forward(model, batch, cfg, generator),
+                                     batch, cfg, pck_thresholds)
 
         return _accum_eval(metrics_one, raw, cfg.grad_accum)
 

@@ -1,7 +1,7 @@
 """The training harness: the JAX package's ``Worker``.
 
-Port of ``handpose_tpu/train/trainer.py:44-549`` on one card: the RHD
-and InterHand2.6M datasets (decoded per batch, or through their decoded
+Port of ``handpose_tpu/train/trainer.py:44-549``: the RHD and
+InterHand2.6M datasets (decoded per batch, or through their decoded
 caches with ``cfg.cache_decoded``; InterHand's mixed capture sizes
 zero-padded to one frame), ``steps_per_epoch = max(len(train) //
 batch_size, 1)``, a shuffled epoch order with the remainder dropped for
@@ -21,9 +21,24 @@ training into ``run_dir/profile/`` (a ``torch.profiler`` chrome trace,
 the card's kernels included), and ``cfg.compilation_cache_dir`` names
 where the native libraries are built and found.
 
-PyTorch runs eagerly, so ``steps_per_dispatch`` (k fused steps in one
-XLA program in the JAX package, the same math as k single steps) runs
-its steps one at a time.
+The Worker's knobs, as the JAX Worker's: ``fuse_preprocess=False``
+preprocesses each batch as its own pass (augmented from a generator
+seeded ``cfg.seed * 7919 + epoch``) and trains ``make_train_step`` on the
+sample dicts; ``steps_per_dispatch`` k > 1 runs each full group of k
+training batches through ``make_fused_multi_step`` with preemption
+checked between groups (a partly buffered group is dropped at a request)
+and an epoch's tail one step at a time; ``remat`` and ``debug_nans`` act
+in the steps.
+
+Under a process group (``parallel.initialize_distributed``, then
+``Worker(cfg)`` on every rank) the Worker is one rank of the JAX
+package's global program: the model replicated (DDP, global BatchNorm,
+the global batch's losses), each rank loading its shard of every
+global batch (``HostShardSampler``, validation padded with the pad rows'
+visibility zeroed and the MPJPE and loss sums all-reduced in float64),
+the draws made for the global batch on every rank and cut to its rows,
+the preemption flag agreed by all ranks at each step boundary, and the
+run directory, logs, checkpoints and profile on rank 0 only.
 """
 
 from __future__ import annotations
@@ -35,17 +50,22 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.pipeline import open_dataset, raw_device_batches
+from ..data.pipeline import (open_dataset, raw_device_batches,
+                             sampled_device_batches)
+from ..data.preprocess import preprocess_fn_for
 from ..data.synthetic import fake_sample_batch
 from ..device import resolve_device
 from ..models import build_model, mano_source_of
-from ..utils.logging import RunLogger, StepStats, make_run_dir
+from ..parallel import distributed as dist_
+from ..parallel.mesh import replicate
+from ..utils.logging import NullLogger, RunLogger, StepStats, make_run_dir
 from .checkpoints import (filtered_resume, reconcile_schedule_count,
                           save_checkpoint)
 from .preemption import PreemptionGuard
 from .state import create_train_state
 from .steps import (make_eval_step, make_fused_eval_step,
-                    make_fused_train_step, make_train_step, pass_draws)
+                    make_fused_multi_step, make_fused_train_step,
+                    make_train_step, pass_draws, train_module)
 
 AUG_FLAGS = ("hue_aug", "coord_uv_noise", "crop_center_noise",
              "crop_scale_noise", "crop_offset_noise", "scoremap_dropout")
@@ -67,6 +87,18 @@ def _check_supported(cfg: Config):
     if not _is_fake(cfg) and cfg.dataset_name not in DATASETS:
         raise ValueError(f"dataset {cfg.dataset_name!r} not in {DATASETS} "
                          "or 'synthetic'")
+    if cfg.steps_per_dispatch > 1 and not cfg.fuse_preprocess:
+        raise ValueError(
+            "steps_per_dispatch > 1 (the default is 8) requires "
+            "fuse_preprocess=True -- the multi-step scan consumes "
+            "raw device batches; pass --set steps_per_dispatch=1 "
+            "alongside fuse_preprocess=False")
+    if dist_.world() > 1 and not cfg.fuse_preprocess and not _is_fake(cfg):
+        raise ValueError(
+            "multi-host training requires the fused step path: keep "
+            "fuse_preprocess=True (host-local preprocessing would "
+            "correlate augmentation draws across hosts and bounce "
+            "batches device->host->device)")
 
 
 def _is_fake(cfg: Config) -> bool:
@@ -88,12 +120,16 @@ class Worker:
         _check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.distributed = dist_.is_distributed()
+        self.rank, self.world = dist_.rank(), dist_.world()
+        self.is_lead = self.rank == 0
         if cfg.compilation_cache_dir:
             from ..utils.device_info import enable_compilation_cache
             enable_compilation_cache(cfg.compilation_cache_dir)
         self.model = load_weights(build_model(cfg), weights).to(self.device)
-        self.fused = not _is_fake(cfg)
-        if self.fused:
+        fake = _is_fake(cfg)
+        self.fused = cfg.fuse_preprocess and not fake
+        if not fake:
             if cfg.dataset_name == "InterHand2.6M":
                 train_split, val_split = "train", "val"
             else:
@@ -104,38 +140,39 @@ class Worker:
             self.val_ds = open_dataset(cfg, val_split)
             self.steps_per_epoch = max(len(self.train_ds) // cfg.batch_size,
                                        1)
-            pp_kwargs = serving_kwargs(cfg)
+            self.pp_kwargs = serving_kwargs(cfg)
             names = (INTERHAND_AUG_FLAGS
                      if cfg.dataset_name == "InterHand2.6M" else AUG_FLAGS)
             self.aug_flags = {f: getattr(cfg, f) for f in names}
-            # preprocessing=None: the steps take the raw batch's own
-            self.train_step = make_fused_train_step(
-                self.model, cfg, None, pp_kwargs, self.aug_flags)
-            self.eval_step = make_fused_eval_step(self.model, cfg, None,
-                                                  pp_kwargs)
             what = (f"{len(self.train_ds)} {cfg.dataset_name} "
                     f"{train_split} samples")
         else:
             self.train_ds = self.val_ds = None
             self.steps_per_epoch = FAKE_STEPS_PER_EPOCH
             self.aug_flags = {}
-            self.train_step = make_train_step(self.model, cfg)
-            self.eval_step = make_eval_step(self.model, cfg)
             what = "fake batches"
         self.state = create_train_state(self.model, cfg, self.steps_per_epoch)
-        mano = mano_source_of(cfg)
-        self.run_dir = run_dir if run_dir is not None else make_run_dir(
-            cfg.save_log_dir, cfg.model_name, cfg.dataset_name, cfg.to_json(),
-            provenance=None if mano is None else {"mano": mano})
-        os.makedirs(self.run_dir, exist_ok=True)
-        self.logger = RunLogger(self.run_dir)
+        if self.is_lead:
+            mano = mano_source_of(cfg)
+            self.run_dir = run_dir if run_dir is not None else make_run_dir(
+                cfg.save_log_dir, cfg.model_name, cfg.dataset_name,
+                cfg.to_json(),
+                provenance=None if mano is None else {"mano": mano})
+            os.makedirs(self.run_dir, exist_ok=True)
+            self.logger = RunLogger(self.run_dir)
+        else:
+            # named in messages only, never created
+            self.run_dir = run_dir if run_dir is not None else os.path.join(
+                cfg.save_log_dir, f"nonlead_rank{self.rank}")
+            self.logger = NullLogger()
         self.log_path = self.logger.log_path
         self.stats = StepStats()
         self.step_seconds: list = []     # host time of each train step
         self.start_epoch = 0
         self.best_mpjpe = float(np.inf)
         # the augmentations' and the model's training draws, on the card
-        # (JAX: PRNGKey(seed + 17))
+        # (JAX: PRNGKey(seed + 17)); equal on every rank, which draws the
+        # global batch's and takes its rows
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 17)
         # a model that draws in its forward (DiffusionHandPose) takes the
@@ -143,16 +180,18 @@ class Worker:
         self.stochastic = getattr(self.model, "stochastic", False)
         self.preempt: Optional[PreemptionGuard] = None
         aug = [f for f, on in self.aug_flags.items() if on]
+        ranks = (f", rank {self.rank} of {self.world}" if self.distributed
+                 else "")
         self.logger.text(
-            f"training {cfg.model_name} on {self.device}: {what}, batch "
-            f"{cfg.batch_size}, {self.steps_per_epoch} steps per epoch, "
-            f"bn_variance {cfg.bn_mode}, compute {cfg.compute_dtype}, "
-            f"augmentations {aug or 'off'}")
-        if cfg.steps_per_dispatch > 1:
-            self.logger.text(
-                f"steps_per_dispatch={cfg.steps_per_dispatch}: the port "
-                "runs the steps of a group one at a time (the same math)")
+            f"training {cfg.model_name} on {self.device}{ranks}: {what}, "
+            f"batch {cfg.batch_size}, {self.steps_per_epoch} steps per "
+            f"epoch, bn_variance {cfg.bn_mode}, compute {cfg.compute_dtype},"
+            f" augmentations {aug or 'off'}"
+            + ("" if self.fused or fake else ", preprocessing unfused")
+            + (", remat" if cfg.remat else "")
+            + (", debug_nans" if cfg.debug_nans else ""))
         if cfg.resume_weight_path:
+            # every rank resumes from the same directory
             self.state, self.start_epoch, self.best_mpjpe, finetune = \
                 filtered_resume(self.state, cfg.resume_weight_path)
             if not finetune:
@@ -163,6 +202,35 @@ class Worker:
             mode = "finetune" if finetune else "resume"
             self.logger.text(f"loaded {cfg.resume_weight_path} as {mode}; "
                              f"start_epoch={self.start_epoch}")
+        # under a process group the steps run the replicated model (world
+        # 1 included: its collectives are then sums over one rank)
+        net = self.model
+        if self.distributed:
+            net = replicate(train_module(self.model, cfg),
+                            find_unused_parameters=not getattr(
+                                self.model, "trains_every_parameter", True))
+        self.multi_step = None
+        if self.fused:
+            # preprocessing=None: the steps take the raw batch's own
+            self.train_step = make_fused_train_step(
+                net, cfg, None, self.pp_kwargs, self.aug_flags)
+            self.eval_step = make_fused_eval_step(self.model, cfg, None,
+                                                  self.pp_kwargs)
+            if cfg.steps_per_dispatch > 1:
+                self.multi_step = make_fused_multi_step(
+                    net, cfg, None, self.pp_kwargs, self.aug_flags)
+        else:
+            self.train_step = make_train_step(net, cfg)
+            self.eval_step = make_eval_step(self.model, cfg)
+        k = cfg.steps_per_dispatch
+        if self.multi_step is not None:
+            self.logger.text(
+                f"steps_per_dispatch={k}: full groups of {k} steps, "
+                "preemption checked between groups; an epoch's "
+                f"{self.steps_per_epoch % k} last steps one by one")
+        elif k > 1:
+            self.logger.text(f"steps_per_dispatch={k}: fake data trains one "
+                             "step at a time")
 
     def text(self, info: str):
         """Print a log line and append it to ``<run_dir>/log.txt``."""
@@ -178,29 +246,68 @@ class Worker:
         return self.preempt
 
     def _preempt_now(self) -> bool:
-        return self.preempt is not None and self.preempt.requested
+        """The preemption flag, agreed by every rank under a process
+        group (an all-reduce MAX of the local flags at each step
+        boundary), so that all ranks stop at the same boundary rather
+        than one leaving its peers in the next collective; arm the guard
+        on every rank."""
+        if self.preempt is None:
+            return False
+        if not self.distributed:
+            return self.preempt.requested
+        return dist_.all_reduce_max_flag(self.preempt.requested, self.device)
 
     def _epoch_batches(self, split: str, epoch: int) -> Iterator:
         cfg = self.cfg
-        if not self.fused:
+        if self.train_ds is None:
+            # each rank draws distinct samples: the global batch is the
+            # ranks' batches, not copies of one
+            rank_off = self.rank * 1_000_003
             for i in range(self.steps_per_epoch):
                 batch = fake_sample_batch(min(cfg.batch_size, 8),
                                           cfg.crop_size, cfg.input_channels,
-                                          epoch * 1000 + i)
+                                          epoch * 1000 + i + rank_off)
                 yield {k: v.to(self.device) for k, v in batch.items()}
             return
         is_train = split == "training"
         ds = self.train_ds if is_train else self.val_ds
         shuffle = is_train and cfg.shuffle \
             and not cfg.use_val_dataset_to_debug
-        # validation sees the whole split, its trailing partial batch too
-        yield from raw_device_batches(
-            ds, cfg.batch_size, self.device, shuffle=shuffle,
-            seed=cfg.seed * 100003 + epoch, drop_remainder=is_train,
-            depth=max(cfg.prefetch_depth, 2))
+        depth = max(cfg.prefetch_depth, 2)
+        if self.world > 1:
+            # this rank's shard of each global batch: training's in the
+            # grad_accum layout of the JAX step's microbatches, the
+            # validation split whole, padded, its pad rows weighing 0
+            sampler = dist_.HostShardSampler(len(ds), cfg.batch_size,
+                                             shuffle=shuffle, seed=cfg.seed)
+            chunks = (sampler.local_batches(epoch, cfg.grad_accum)
+                      if is_train else sampler.local_batches_padded(epoch))
+            raws = sampled_device_batches(ds, chunks, self.device,
+                                          depth=depth)
+        else:
+            # validation sees the whole split, its trailing partial batch
+            raws = raw_device_batches(
+                ds, cfg.batch_size, self.device, shuffle=shuffle,
+                seed=cfg.seed * 100003 + epoch, drop_remainder=is_train,
+                depth=depth)
+        if self.fused:
+            yield from raws
+            return
+        # fuse_preprocess=False: preprocessing as its own pass, the
+        # augmentations drawn from a per-epoch generator (JAX:
+        # PRNGKey(seed * 7919 + epoch))
+        flags = {f: True for f, on in self.aug_flags.items()
+                 if on and is_train}
+        g = torch.Generator(device=self.device).manual_seed(
+            cfg.seed * 7919 + epoch) if flags else None
+        for raw in raws:
+            with torch.no_grad():
+                batch = preprocess_fn_for(raw)(raw, **self.pp_kwargs,
+                                               **flags, generator=g)
+            yield batch
 
     def _train_on(self, batch):
-        if self.fused or self.stochastic:
+        if self.train_ds is not None or self.stochastic:
             return self.train_step(self.state, batch,
                                    generator=self.generator)
         return self.train_step(self.state, batch)
@@ -226,6 +333,29 @@ class Worker:
                       f"{self.steps_per_epoch:05d} | {terms} | "
                       f"{self.stats.summary()}")
 
+    def _run_group(self, group: list, epoch: int, losses_acc: dict) -> int:
+        """A full ``steps_per_dispatch`` group of ``(idx, raw)`` through
+        the multi-step, each step's losses booked as a single step's; its
+        host time is shared equally among its steps."""
+        batches = [b for _, b in group]
+        stack = type(batches[0])(*(torch.stack(xs) for xs in
+                                   zip(*batches)))
+        self.stats.step.tic()
+        self.state, losses_k = self.multi_step(self.state, stack,
+                                               generator=self.generator)
+        for j, (idx, _) in enumerate(group):
+            self._finish_train_metrics({k: v[j] for k, v in losses_k.items()},
+                                       epoch, idx, losses_acc)
+        dt = self.stats.step.toc()
+        self.step_seconds.extend([dt / len(group)] * len(group))
+        return len(group)
+
+    def _train_one(self, batch, epoch: int, idx: int, losses_acc: dict):
+        self.stats.step.tic()
+        self.state, metrics = self._train_on(batch)
+        self._finish_train_metrics(metrics, epoch, idx, losses_acc)
+        self.step_seconds.append(self.stats.step.toc())
+
     def run_epoch(self, epoch: int, split: str,
                   fast_debug: bool = False) -> Optional[float]:
         """One pass over ``split`` ('training' or 'validation'); returns
@@ -237,21 +367,31 @@ class Worker:
         n = 0
         draws = {} if is_train else pass_draws(self.model, self.cfg,
                                                self.device)
+        group_k = (self.cfg.steps_per_dispatch
+                   if is_train and self.multi_step is not None else 1)
+        group: list = []
         self.stats.input.tic()
         for idx, batch in enumerate(self._epoch_batches(split, epoch)):
             self.stats.input.toc()
             if fast_debug and idx > 2:
                 break
             if self._preempt_now():
+                # a buffered group is dropped: the checkpoint pins the
+                # interrupted epoch, which resume restarts
                 self.text(f"preemption requested: stopping {split} at "
                           f"epoch {epoch} iter {idx}")
+                group = []
                 break
-            self.stats.step.tic()
-            if is_train:
-                self.state, metrics = self._train_on(batch)
-                self._finish_train_metrics(metrics, epoch, idx, losses_acc)
-                self.step_seconds.append(self.stats.step.toc())
+            if group_k > 1:
+                group.append((idx, batch))
+                if len(group) == group_k:
+                    n += self._run_group(group, epoch, losses_acc)
+                    group = []
+            elif is_train:
+                self._train_one(batch, epoch, idx, losses_acc)
+                n += 1
             else:
+                self.stats.step.tic()
                 metrics = self.eval_step(batch, **draws)
                 mpjpe_sum += float(metrics["mpjpe_sum"])
                 mpjpe_count += float(metrics["mpjpe_count"])
@@ -259,9 +399,22 @@ class Worker:
                 for k, v in metrics.items():
                     if k not in ("mpjpe_sum", "mpjpe_count"):
                         losses_acc[k] = losses_acc.get(k, 0.0) + float(v)
-            n += 1
+                n += 1
             self.stats.input.tic()
         self.stats.input.toc()
+        # an epoch's tail that did not fill a group: one step at a time
+        for idx, batch in group:
+            self._train_one(batch, epoch, idx, losses_acc)
+            n += 1
+        if not is_train and self.distributed:
+            # every rank's sums, in float64, so that each returns the same
+            # MPJPE over the whole split
+            keys = sorted(losses_acc)
+            total = dist_.all_reduce_float64(
+                [mpjpe_sum, mpjpe_count, n] + [losses_acc[k] for k in keys],
+                self.device)
+            mpjpe_sum, mpjpe_count, n = total[:3]
+            losses_acc = dict(zip(keys, total[3:]))
         means = {k: v / max(n, 1) for k, v in losses_acc.items()}
         # a validation that saw no visible joint has no metric: 0.0 would
         # read as a perfect MPJPE and poison the best checkpoint
@@ -288,7 +441,7 @@ class Worker:
         end = max_epoch if max_epoch is not None else self.cfg.max_epoch
         run_dir = os.path.abspath(self.run_dir)
         for epoch in range(self.start_epoch, end):
-            if epoch == self.cfg.profile_epoch:
+            if epoch == self.cfg.profile_epoch and self.is_lead:
                 from ..utils.device_info import profile_trace
                 with profile_trace(os.path.join(run_dir, "profile")):
                     self.run_epoch(epoch, "training", fast_debug)
@@ -308,14 +461,16 @@ class Worker:
             is_best = val is not None and val < self.best_mpjpe
             if is_best:
                 self.best_mpjpe = val
-            save_checkpoint(run_dir, self.state, epoch + 1, self.best_mpjpe,
-                            is_best)
+            if self.is_lead:
+                save_checkpoint(run_dir, self.state, epoch + 1,
+                                self.best_mpjpe, is_best)
         self.logger.close()
         return self.best_mpjpe
 
     def _save_preemption_checkpoint(self, start_epoch: int) -> None:
-        save_checkpoint(os.path.abspath(self.run_dir), self.state,
-                        start_epoch, self.best_mpjpe, is_best=False)
+        if self.is_lead:
+            save_checkpoint(os.path.abspath(self.run_dir), self.state,
+                            start_epoch, self.best_mpjpe, is_best=False)
         self.text(f"preemption checkpoint written (resumes at epoch "
                   f"{start_epoch}); resume with --resume "
                   f"{self.run_dir}/checkpoint")

@@ -5,8 +5,9 @@ Port of ``handpose_tpu/utils/logging.py:24-131``: the run directory
 snapshot (``config.json``) and the code revision (``provenance.json``),
 TensorBoard scalars (through ``torch.utils.tensorboard`` where its
 ``tensorboard`` package is installed, else none, as the JAX package does
-with tensorboardX), ``log.txt`` and the console, and the step-time
-against input-stall timers of every epoch line.
+with tensorboardX), ``log.txt`` and the console (``NullLogger`` off the
+lead rank), and the step-time against input-stall timers of every epoch
+line.
 """
 
 from __future__ import annotations
@@ -95,6 +96,22 @@ class RunLogger:
     def close(self):
         if self.writer is not None:
             self.writer.close()
+
+
+class NullLogger:
+    """:class:`RunLogger`'s interface, doing nothing: a rank other than
+    the lead owns no run directory, TensorBoard file or ``log.txt``."""
+
+    log_path = None
+
+    def scalar(self, tag: str, value: float, step: int):
+        pass
+
+    def text(self, info: str):
+        pass
+
+    def close(self):
+        pass
 
 
 class Timer:

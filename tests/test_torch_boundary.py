@@ -32,7 +32,9 @@ new = ["handpose_tpu_torch.nn.diffusion", "handpose_tpu_torch.nn.diffusion2d",
        "handpose_tpu_torch.ops.camera", "handpose_tpu_torch.ops.patch",
        "handpose_tpu_torch.utils.vis", "handpose_tpu_torch.utils.device_info",
        "handpose_tpu_torch.infer.export",
-       "handpose_tpu_torch.examples.serving_demo"]
+       "handpose_tpu_torch.examples.serving_demo",
+       "handpose_tpu_torch.parallel.distributed",
+       "handpose_tpu_torch.parallel.mesh", "handpose_tpu_torch.train.nans"]
 assert all(n in names for n in new), names
 print(len(names), bad)
 """

@@ -123,7 +123,9 @@ def test_resume_continues_exactly(tree, logs, full_run):
 
 
 def test_preemption_checkpoint_and_resume(tree, logs):
-    cfg = _cfg(tree, logs, max_epoch=3)
+    # the single-step boundary: JAX's rule at steps_per_dispatch=1 (the
+    # group rule is tests/test_torch_knobs.py's)
+    cfg = _cfg(tree, logs, max_epoch=3, steps_per_dispatch=1)
     w = Worker(cfg, device="cpu")
     guard = w.enable_preemption_save(
         PreemptionGuard(signals=(signal.SIGUSR1,)))

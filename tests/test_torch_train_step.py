@@ -152,14 +152,6 @@ def test_fused_step_three_step_trajectory(setup, jax_trajectory):
     assert_trajectory_close(jvars, export_flax_variables(model))
 
 
-def test_remat_waits_for_queue_9():
-    _, cfg = train_cfgs(CROP, remat=True)
-    model, _ = torch_train_state(flax_weights(32), cfg.replace(
-        input_img_shape=(32, 32)), SPE)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        make_fused_train_step(model, cfg, preprocess_batch, pp_kwargs(32))
-
-
 def test_train_step_on_a_preprocessed_batch_equals_the_fused_one():
     """make_train_step on preprocess_batch's output == the fused step on
     the raw batch (the JAX repo's fused-vs-separate check): losses and

@@ -10,10 +10,8 @@ A 12-sample RHD tree (both splits) from the port's
 * a non-finite loss aborts with ``FloatingPointError``;
 * ``python -m handpose_tpu_torch.train --device cpu --fast_debug ...``
   exits 0;
-* the Worker and the CLI default to the card and raise without one;
-  what waits for later slices (``remat``) raises
-  ``NotImplementedError``; an unknown dataset and the terminal transforms
-  raise ``ValueError``.
+* the Worker and the CLI default to the card and raise without one; an
+  unknown dataset and the terminal transforms raise ``ValueError``.
 """
 
 import os
@@ -68,7 +66,7 @@ def test_worker_epoch_and_validation_equal_to_the_evaluator(tree, logs):
     assert worker.state.step == 3 and len(worker.step_seconds) == 3
     log = open(worker.log_path).read()
     assert "Training Epoch: 000" in log and "Validation Epoch: 000" in log
-    assert "one at a time" in log           # steps_per_dispatch=8
+    assert "full groups of 8 steps" in log  # steps_per_dispatch=8
     line = next(t for t in log.splitlines()
                 if t.startswith("Training Epoch: 000"))
     assert np.isfinite(float(line.rsplit("loss: ", 1)[1].split(",")[0]))
@@ -115,8 +113,6 @@ def test_worker_defaults_to_the_card_and_waits_where_it_should(tree,
                   f"save_log_dir={tmp_path}"])
     with pytest.raises(ValueError, match="not in"):
         Worker(cfg.replace(dataset_name="COCO"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        Worker(cfg.replace(remat=True), device="cpu")
     with pytest.raises(ValueError, match="incompatible with training"):
         Worker(cfg.replace(scale_to_size=True), device="cpu")
     with pytest.raises(SystemExit):

@@ -57,6 +57,11 @@ def profiled(fn, iters: int) -> dict:
                          getattr(evt, "cuda_time_total", 0.0))
         if evt.device_type.name != "CUDA" or dev_us <= 0:
             continue
+        if getattr(evt, "is_user_annotation", False) or \
+                evt.key == "DistributedDataParallel.forward":
+            # a range the profiler also reports on the device (DDP's
+            # forward, around the kernels it holds), not a kernel
+            continue
         kernels.append((dev_us / iters / 1e3, evt.count / iters, evt.key))
         by_kind[kind_of(evt.key)] += dev_us / iters / 1e3
     kernels.sort(reverse=True)

@@ -2,6 +2,7 @@
 """Where the time of the port's train step goes, on one card.
 
     python tools/torch_train_profile.py [--model M] [--batch 256] [--iters 3]
+                                        [--ddp]
 
 Runs the fused train step of ``handpose_tpu_torch`` (``--model``, default
 Hand3DPosePriorNetwork, with the model's default input channels; full
@@ -14,8 +15,13 @@ device's busy share of the wall time.  For DiffusionHandPose, whose
 forward runs its 200-step DDIM sampler, one sampler pass on the step's
 features is also profiled alone: its kernels are reported as their own
 kind, taken out of the others, with the pass's own busy share and its
-kernels per denoise step.  The last line is one JSON object with those
-numbers.  Needs a card; imports nothing of JAX.
+kernels per denoise step.  With ``--ddp`` the same step also runs
+replicated (``parallel.replicate``) inside a process group of one rank
+over NCCL, as the Worker runs it under a group, and is profiled after
+the plain one from the same seeded weights: the two reports side by
+side, and the collectives' calls and host time per step.  The last line
+is one JSON object with those numbers.  Needs a card; imports nothing of
+JAX.
 """
 
 import argparse
@@ -38,6 +44,9 @@ def main():
     p.add_argument("--model", default="Hand3DPosePriorNetwork")
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--ddp", action="store_true",
+                   help="also profile the step replicated in a one-rank "
+                        "NCCL group")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available")
@@ -104,7 +113,63 @@ def main():
               f"{out['sampler_kernels_per_denoise_step']:.0f} kernels a "
               "denoise step")
     out["by_kind_ms"] = by_kind
+    if args.ddp:
+        out["ddp"] = ddp_profile(cfg, raw, dev, card, args.iters)
     print(json.dumps(out))
+
+
+def ddp_profile(cfg, raw, dev, card, iters: int) -> dict:
+    """The fused step of the seeded model replicated in a one-rank NCCL
+    group: its profile, and the host time of its collectives' calls
+    (``c10d``/``nccl`` events on the host) per step."""
+    import socket
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from handpose_tpu_torch.data.preprocess import preprocess_batch
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch.models import build_model
+    from handpose_tpu_torch.parallel import initialize_distributed, replicate
+    from handpose_tpu_torch.train import (create_train_state,
+                                          make_fused_train_step)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0)
+    model = build_model(cfg).to(dev)
+    state = create_train_state(model, cfg)
+    step = make_fused_train_step(replicate(model), cfg, preprocess_batch,
+                                 serving_kwargs(cfg))
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 17)
+
+    def one_step():
+        step(state, raw, generator=gen)
+
+    for _ in range(2):
+        one_step()
+    run = profiled(one_step, iters)
+    report(f"{cfg.model_name} train step b{cfg.batch_size}, replicated in "
+           "a one-rank NCCL group (per step)", card, run, run["by_kind_ms"],
+           20)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(iters):
+            one_step()
+        torch.cuda.synchronize()
+    coll = [(e.cpu_time_total / iters / 1e3, e.count / iters, e.key)
+            for e in prof.key_averages()
+            if any(k in e.key.lower() for k in ("c10d", "nccl", "allreduce",
+                                                 "all_reduce"))]
+    coll.sort(reverse=True)
+    print("collectives on the host (ms per step, calls per step):")
+    for ms, n, name in coll[:12]:
+        print(f"  {ms:8.3f} {n:7.1f}  {name[:100]}")
+    dist.destroy_process_group()
+    return {"step_ms": run["wall_ms"], "device_kernel_ms": run["kernel_ms"],
+            "device_busy_share": run["kernel_ms"] / run["wall_ms"],
+            "kernels_per_step": run["launches"],
+            "by_kind_ms": run["by_kind_ms"],
+            "collectives_host": [{"name": n, "calls": c, "host_ms": ms}
+                                 for ms, c, n in coll[:12]]}
 
 
 if __name__ == "__main__":
