@@ -77,14 +77,30 @@
        boundary, rank 0 alone writing;
    (c) the Worker with ``remat``: two steps equal to the plain Worker's,
        K2 80 a step, the step's time and peak memory beside the plain
-       step's; DiffusionHandPose at b8, one remat step equal to the plain
-       one (its gradient within twice the distance of two plain steps),
-       the generator advanced once;
+       step's; DiffusionHandPose at b8 under torch's deterministic
+       algorithms, in a process of its own (cuBLAS's workspace setting
+       for them stays out of the other phases), one remat step equal to
+       the plain one (its gradient within twice the distance of two
+       plain steps, both 0 there), the generator advanced once;
    (d) ``steps_per_dispatch`` 2 (a full group an epoch) and 8 (all tail):
        the dispatches and step counts, the states equal, a request while
        a group is buffered dropping it;
    (e) ``debug_nans``: the Worker's step time with it on; a NaN planted in
        one conv kernel raises ``FloatingPointError`` naming the module;
+   (f) four ranks on the one card (spawned processes, gloo), dp 2 x tp 2
+       (``parallel/sharding.py``), float32, TF32 off: the dry run
+       (``parallel/dryrun.py``, the global b128 of the JAX body's seeded
+       frames with all six augmentations, two fused steps) against the
+       1-process steps on the same batch (within twice (b)'s yardstick,
+       the step-1 gradients gathered whole included), the state and
+       those gradients gathered whole bit-equal on the four ranks, each
+       sharded parameter and its Adam moments stored as half its rows,
+       each rank's parameter and Adam bytes beside the replicated
+       state's (within 5% of the rule's prediction, -49.8%); a Worker
+       with ``mesh_shape=(2, 2)`` for one epoch at the default cuDNN
+       settings, its padded validation one MPJPE on all four ranks,
+       equal (1e-9) to the 1-process eval step over the two data shards
+       summed in float64;
 8a. export phase: the flagship's fused serving program (full width, b256,
    seeded init) exported with ``torch.export`` on the card and saved;
    a process that imports only torch, numpy and the port's ops loads it,
@@ -2628,6 +2644,21 @@ def deterministic_cudnn():
          torch.backends.cudnn.benchmark) = before
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms (``torch.use_deterministic_
+    algorithms``) on top of :func:`deterministic_cudnn`, for a comparison
+    whose backward has atomic adds outside cuDNN; cuBLAS then needs
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set before the process first
+    uses the card (``diffusion_remat_child``)."""
+    with deterministic_cudnn():
+        torch.use_deterministic_algorithms(True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
 def max_leaf_err(want: dict, got: dict) -> float:
     """The largest |got - want| of a leaf over that leaf's max |want|."""
     assert sorted(want) == sorted(got)
@@ -2638,10 +2669,16 @@ def max_leaf_err(want: dict, got: dict) -> float:
 
 def worker_state(worker) -> dict:
     """The Worker's variables and Adam moments, as numpy by name."""
+    return state_arrays(worker.model, worker.state)
+
+
+def state_arrays(model, state) -> dict:
+    """``model``'s variables and ``state``'s Adam moments, as numpy by
+    name."""
     from handpose_tpu_torch.convert import export_flax_variables
-    out = export_flax_variables(worker.model)
-    names = dict((id(p), n) for n, p in worker.model.named_parameters())
-    for p, st in worker.state.optimizer.state.items():
+    out = export_flax_variables(model)
+    names = dict((id(p), n) for n, p in model.named_parameters())
+    for p, st in state.optimizer.state.items():
         for k in ("exp_avg", "exp_avg_sq"):
             out[f"adam/{names[id(p)]}/{k}"] = st[k].float().cpu().numpy()
     return out
@@ -2727,10 +2764,11 @@ def _f32_step_inputs(root, dev):
     return cfg, raw
 
 
-def _two_steps(cfg, raw, dev, net_of=None, rank=None):
+def _two_steps(cfg, raw, dev, net_of=None, rank=None, seed=5):
     """Two fused steps of the seeded model on ``raw`` (``net_of(model)``
-    replicates it; then ``raw`` is cut to this rank's rows): (losses,
-    step-1 gradients, variables after, K1/K2/K3 launches)."""
+    replicates it; then ``raw`` is cut to this rank's rows), the draws
+    from a generator seeded ``seed``: (losses, step-1 gradients,
+    variables after, K1/K2/K3 launches)."""
     from handpose_tpu_torch.convert import export_flax_variables
     from handpose_tpu_torch.infer.evaluator import serving_kwargs
     from handpose_tpu_torch.models import build_model
@@ -2745,7 +2783,7 @@ def _two_steps(cfg, raw, dev, net_of=None, rank=None):
     raw = raw.to(dev)
     if rank is not None:
         raw = shard_batch(raw)
-    g = torch.Generator(device=dev).manual_seed(5)
+    g = torch.Generator(device=dev).manual_seed(seed)
     losses, grads = [], None
     reset_counts()
     for i in range(2):
@@ -2810,6 +2848,55 @@ def two_rank_child(rank, port, work, root, device="cuda"):
     dist.destroy_process_group()
 
 
+def step_drifts(ref, other_losses, other_grads, other_vars, lr):
+    """How far another run of two steps is from ``ref`` (``_two_steps``'s
+    losses, step-1 gradients and variables): the step-1 losses (largest
+    relative error), the step-1 gradients (largest error over the tree's
+    largest gradient; None without ``other_grads``), the running
+    statistics (largest error over each leaf's range) and the share of
+    parameter elements whose updates differ by more than 0.1 lr."""
+    losses, grads, variables = ref[0], ref[1], ref[2]
+    loss = max(abs(other_losses[0][k] - v) / abs(v)
+               for k, v in losses[0].items())
+    grad = None
+    if other_grads is not None:
+        scale = max(float(np.abs(v).max()) for v in grads.values())
+        grad = max(float(np.abs(other_grads[k] - v).max())
+                   for k, v in grads.items()) / scale
+    stats = max_leaf_err({k: v for k, v in variables.items()
+                          if k.startswith("batch_stats/")},
+                         {k: other_vars[k] for k in variables
+                          if k.startswith("batch_stats/")})
+    n_off = sum(int((np.abs(other_vars[k] - v) > 0.1 * lr).sum())
+                for k, v in variables.items() if k.startswith("params/"))
+    n_all = sum(v.size for k, v in variables.items()
+                if k.startswith("params/"))
+    return loss, grad, stats, n_off / n_all
+
+
+def shard_mpjpe(ev, root, batch, dp, seed, dev):
+    """The MPJPE of the Evaluator's eval step over each of ``dp`` data
+    ranks' padded validation shards of the tree (global ``batch``), its
+    sums added in float64: what the Worker's padded validation must
+    give."""
+    from handpose_tpu_torch.data.pipeline import _host_tensors
+    from handpose_tpu_torch.data.rhd import RHDDataset
+    from handpose_tpu_torch.parallel import HostShardSampler
+    ds = RHDDataset(root, "evaluation", cache_decoded=True)
+    total = count = 0.0
+    for r in range(dp):
+        sampler = HostShardSampler(len(ds), batch, r, dp, shuffle=False,
+                                   seed=seed)
+        for idx, valid in sampler.local_batches_padded(0):
+            host = ds.raw_batch(idx)
+            host = host._replace(keypoint_vis=host.keypoint_vis
+                                 * valid[:, None])
+            m = ev.eval_step(_host_tensors(host, False).to(dev))
+            total += float(m["mpjpe_sum"])
+            count += float(m["mpjpe_count"])
+    return total / count
+
+
 def two_rank_phase(dev, root):
     """(b) Two ranks on the one card over gloo (NCCL refuses two ranks on
     one device), float32, TF32 off, the global b256 (128 a rank) with all
@@ -2821,11 +2908,8 @@ def two_rank_phase(dev, root):
     over the same shards summed in float64 (1e-9); a preemption request
     on rank 1 alone stops both after one step, rank 0 alone writing."""
     import torch.multiprocessing as mp
-    from handpose_tpu_torch.data.pipeline import _host_tensors
-    from handpose_tpu_torch.data.rhd import RHDDataset
     from handpose_tpu_torch.infer import Evaluator
     from handpose_tpu_torch.ops import moments
-    from handpose_tpu_torch.parallel import HostShardSampler
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2855,27 +2939,9 @@ def two_rank_phase(dev, root):
           "two ranks: parameters, running statistics (and DDP's mean "
           "gradients) bit-equal on both")
 
-    def drifts(other_losses, other_grads, other_vars):
-        losses, grads, variables = ref[0], ref[1], ref[2]
-        scale = max(float(np.abs(v).max()) for v in grads.values())
-        loss = max(abs(other_losses[0][k] - v) / abs(v)
-                   for k, v in losses[0].items())
-        grad = max(float(np.abs(other_grads[k] - v).max())
-                   for k, v in grads.items()) / scale
-        stats = max_leaf_err({k: v for k, v in variables.items()
-                              if k.startswith("batch_stats/")},
-                             {k: other_vars[k] for k in variables
-                              if k.startswith("batch_stats/")})
-        lr = cfg.lr
-        n_off = sum(int((np.abs(other_vars[k] - v) > 0.1 * lr).sum())
-                    for k, v in variables.items() if k.startswith("params/"))
-        n_all = sum(v.size for k, v in variables.items()
-                    if k.startswith("params/"))
-        return loss, grad, stats, n_off / n_all
-
-    ours = drifts(outs[0]["losses"], part(arr[0], "grad/"),
-                  part(arr[0], "var/"))
-    yd = drifts(yard[0], yard[1], yard[2])
+    ours = step_drifts(ref, outs[0]["losses"], part(arr[0], "grad/"),
+                       part(arr[0], "var/"), cfg.lr)
+    yd = step_drifts(ref, yard[0], yard[1], yard[2], cfg.lr)
     check(ours[0] <= max(1e-6, 2 * yd[0]), f"two ranks vs one process: "
           f"step-1 losses within {ours[0]:.3g} relative (yardstick "
           f"{yd[0]:.3g})")
@@ -2904,19 +2970,7 @@ def two_rank_phase(dev, root):
           f"{w1['val_mpjpe']!r} after {w0['step']} steps")
     ckpt = os.path.join(w0["run_dir"], "checkpoint")
     ev = Evaluator(cfg.replace(save_log_dir=work), weights=ckpt, device=dev)
-    ds = RHDDataset(root, "evaluation", cache_decoded=True)
-    total = count = 0.0
-    for r in (0, 1):
-        sampler = HostShardSampler(len(ds), BATCH, r, 2, shuffle=False,
-                                   seed=cfg.seed)
-        for idx, valid in sampler.local_batches_padded(0):
-            host = ds.raw_batch(idx)
-            host = host._replace(keypoint_vis=host.keypoint_vis
-                                 * valid[:, None])
-            m = ev.eval_step(_host_tensors(host, False).to(dev))
-            total += float(m["mpjpe_sum"])
-            count += float(m["mpjpe_count"])
-    want = total / count
+    want = shard_mpjpe(ev, root, BATCH, 2, cfg.seed, dev)
     whole = ev.evaluate()
     check(abs(w0["val_mpjpe"] - want) <= 1e-9 * want,
           f"padded validation {w0['val_mpjpe']!r} == the 1-process eval "
@@ -2940,14 +2994,64 @@ def two_rank_phase(dev, root):
                                              zip(*per_rank)]
 
 
+def diffusion_remat_child(index, root, work, device="cuda"):
+    """Phase (c)'s DiffusionHandPose at b8 (T 400, DDIM 200), in a process
+    of its own: two plain steps and a remat one from one seeded model
+    and generator, under torch's deterministic algorithms, whose cuBLAS
+    workspace setting is made here before the card is first used; each
+    step's losses, seconds, gradients and the generator's state after it
+    go to ``work``.  Its backward has atomic adds outside cuDNN: under
+    cuDNN's deterministic algorithms alone two plain steps came 9.4e-6
+    apart and the remat one 9.6e-3 (of the tree's largest gradient) in
+    one run, 8.9e-3 and 8.4e-3 in another."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    from handpose_tpu_torch.convert import export_flax_variables
+    from handpose_tpu_torch.data.rhd import RHDDataset
+    from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch.models import build_model
+    from handpose_tpu_torch.train import create_train_state
+    from handpose_tpu_torch.train.steps import make_fused_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    raw8 = RHDDataset(root, "evaluation", cache_decoded=True).raw_batch(
+        range(8)).to(dev)
+    cfg = model_config(root, DIFFUSION, logs=tempfile.mkdtemp(dir=root))
+    base = build_model(cfg)
+    with deterministic_algorithms():
+        for i, remat in enumerate((False, False, True)):
+            model = build_model(cfg)
+            model.load_state_dict(base.state_dict())
+            model.to(dev)
+            c = cfg.replace(remat=remat)
+            state = create_train_state(model, c)
+            step = make_fused_train_step(model, c, None, serving_kwargs(c))
+            g = torch.Generator(device=dev).manual_seed(3)
+            t0 = time.perf_counter()
+            state, losses = step(state, raw8, generator=g)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            np.savez(os.path.join(work, f"grads{i}.npz"),
+                     **export_flax_variables(model, grads=True))
+            np.save(os.path.join(work, f"generator{i}.npy"),
+                    g.get_state().numpy())
+            with open(os.path.join(work, f"step{i}.json"), "w") as f:
+                json.dump({"losses": {k: float(v)
+                                      for k, v in losses.items()},
+                           "seconds": seconds}, f)
+            del model, state, step
+            torch.cuda.empty_cache()
+
+
 def remat_phase(dev, root, raw_host, plain):
     """(c) The flagship's Worker at b256 with ``remat=True``: two steps
     equal to the plain Worker's (deterministic cuDNN; bound 1e-6 of
     range), K2 80 times a step; the step's time and peak memory beside
     the plain step's, measured here; DiffusionHandPose at b8 (T 400, DDIM
-    200): one remat step's losses equal to the plain one's, its gradient
-    within twice the distance between two plain steps, the generator's
-    state after it the same."""
+    200), under torch's deterministic algorithms: one remat step's losses
+    equal to the plain one's, its gradient within twice the distance
+    between two plain steps (both 0 there), the generator's state after
+    it the same."""
     from handpose_tpu_torch.convert import export_flax_variables
     from handpose_tpu_torch.infer.evaluator import serving_kwargs
     from handpose_tpu_torch.models import build_model
@@ -2988,30 +3092,20 @@ def remat_phase(dev, root, raw_host, plain):
     print(f"remat b{BATCH}: step {r_ms:.3f} ms (plain {p_ms:.3f}), peak "
           f"{r_peak} B (plain {p_peak})", flush=True)
 
-    # DiffusionHandPose at b8: one step, the draws made once.  Its
-    # backward has atomic adds outside cuDNN, so the remat step is held to
-    # the plain one at the distance between two plain steps (yardstick)
-    cfg = model_config(root, DIFFUSION, logs=tempfile.mkdtemp(dir=root))
-    base = build_model(cfg)
-    raw8 = type(raw)(*(a[:8] for a in raw))
+    # DiffusionHandPose at b8: one step, the draws made once, in a
+    # process of its own (diffusion_remat_child)
+    import torch.multiprocessing as mp
+    work = tempfile.mkdtemp(dir=root)
+    mp.start_processes(diffusion_remat_child, args=(root, work, dev.type),
+                       nprocs=1, start_method="spawn", join=True)
     out = []
-    with deterministic_cudnn():
-        for remat in (False, False, True):
-            model = build_model(cfg)
-            model.load_state_dict(base.state_dict())
-            model.to(dev)
-            c = cfg.replace(remat=remat)
-            state = create_train_state(model, c)
-            step = make_fused_train_step(model, c, None, serving_kwargs(c))
-            g = torch.Generator(device=dev).manual_seed(3)
-            t0 = time.perf_counter()
-            state, losses = step(state, raw8, generator=g)
-            torch.cuda.synchronize()
-            out.append(({k: float(v) for k, v in losses.items()},
-                        export_flax_variables(model, grads=True),
-                        g.get_state(), time.perf_counter() - t0))
-            del model, state, step
-            torch.cuda.empty_cache()
+    for i in range(3):
+        with open(os.path.join(work, f"step{i}.json")) as f:
+            meta = json.load(f)
+        out.append((meta["losses"],
+                    dict(np.load(os.path.join(work, f"grads{i}.npz"))),
+                    torch.from_numpy(np.load(os.path.join(
+                        work, f"generator{i}.npy"))), meta["seconds"]))
     (lp, gp, sp, tp), (_, gq, _, _), (lr, gr, sr, tr) = out
     scale = max(float(np.abs(v).max()) for v in gp.values())
 
@@ -3151,6 +3245,208 @@ def debug_nans_phase(dev, root, plain):
             "error": raised}, counts
 
 
+# phase (f): the global batch (64 rows a data rank), and the layout rule's
+# prediction over the flagship (a CPU count): 45 of its 142 parameter
+# tensors sharded, 96.95 of its 97.27 MB, so a rank stores 49.8% less of
+# parameters and Adam moments than the replicated state
+DP_TP_BATCH = 128
+DP_TP_PREDICTED_CUT = 0.498
+
+
+def _digests(arrays: dict) -> dict:
+    import hashlib
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in arrays.items()}
+
+
+def dp_tp_child(rank, port, work, root, device="cuda"):
+    """One rank of phase (f), in its own process on the one card: the dry
+    run (``parallel/dryrun.py``: dp 2 x tp 2, full width, float32, the
+    global b128 with all six augmentations, two fused steps), then a
+    Worker with ``mesh_shape=(2, 2)`` for one epoch with padded
+    validation, the dry run under deterministic cuDNN, the Worker at the
+    default cuDNN settings."""
+    import torch.distributed as dist
+    from handpose_tpu_torch.parallel import initialize_distributed
+    from handpose_tpu_torch.parallel.dryrun import dryrun
+    from handpose_tpu_torch.train import Worker
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    initialize_distributed(f"localhost:{port}", 4, rank, backend="gloo")
+    out = {}
+    with deterministic_cudnn():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        run = dryrun(crop=256, batch=DP_TP_BATCH, steps=2,
+                     augmentations=tuple(_all_augs()), device=dev)
+        torch.cuda.synchronize()
+        out["dryrun_s"] = time.perf_counter() - t0
+        out["launches"] = [k.launches for k in _counts()]
+    arrays = state_arrays(run.state.model, run.state)
+    arrays.update((f"grad1/{k}", v) for k, v in run.grads.items())
+    out.update(losses=run.losses, stored=run.stored,
+               replicated=run.replicated, shard_rows=run.shard_rows,
+               mesh=run.mesh.shape,
+               index=[run.mesh.data_index, run.mesh.model_index],
+               digests=_digests(arrays),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if rank == 0:
+        np.savez(os.path.join(work, "rank0.npz"), **arrays)
+    del run, arrays
+    torch.cuda.empty_cache()
+    cfg = train_config(root, os.path.join(work, f"logs{rank}"),
+                       compute_dtype="float32", **_all_augs()).replace(
+        batch_size=DP_TP_BATCH, infer_batch_size=DP_TP_BATCH, max_epoch=1,
+        steps_per_dispatch=1, mesh_shape=(2, 2),
+        mesh_axis_names=("data", "model"))
+    # the default cuDNN settings: the ranks of one data index agree by
+    # construction (distributed.data_sum_, DDP's mean over every rank)
+    w = Worker(cfg, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    best = w.run()
+    torch.cuda.synchronize()
+    out["worker"] = {"val_mpjpe": best, "run_dir": w.run_dir,
+                     "steps": w.state.step, "dp": w.dp,
+                     "data_rank": w.data_rank,
+                     "val_batches": -(-len(w.val_ds) // DP_TP_BATCH),
+                     "launches": [k.launches for k in _counts()],
+                     "run_s": time.perf_counter() - t0,
+                     "median_step_ms": 1e3 * float(np.median(
+                         w.step_seconds[1:]))}
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def dp_tp_phase(dev, root, card):
+    """(f) Four ranks on the one card over gloo, dp 2 x tp 2
+    (``parallel/sharding.py``), float32, TF32 off, deterministic cuDNN:
+    the dry run's two fused steps of the global b128 (all six
+    augmentations) against the 1-process steps on the same batch and
+    draws, within twice phase (b)'s yardstick (reversed BatchNorm sums),
+    the step-1 gradients gathered whole included; the state and those
+    gradients gathered whole bit-equal on the four ranks; every sharded
+    parameter stored as half its rows, and a rank's parameter and Adam
+    bytes within 5% of the rule's prediction; K1/K2/K3 at a step's
+    counts on every rank; then a ``mesh_shape=(2, 2)`` Worker at the
+    default cuDNN settings, its padded validation one MPJPE on every
+    rank, equal (1e-9) to the 1-process eval step over the two data
+    shards summed in float64."""
+    import torch.multiprocessing as mp
+    from handpose_tpu_torch.infer import Evaluator
+    from handpose_tpu_torch.ops import moments
+    from handpose_tpu_torch.parallel.dryrun import (dryrun_config,
+                                                    dryrun_inputs)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dryrun_config(256, DP_TP_BATCH)
+    raw = dryrun_inputs(DP_TP_BATCH)
+    # the dry run draws its augmentations from a generator seeded 1
+    with deterministic_cudnn():
+        ref = _two_steps(cfg, raw, dev, seed=1)
+        with mock.patch.object(moments, "_moments", lambda x2d, s:
+                               moments.shifted_moments(x2d.flip(0), s)):
+            yard = _two_steps(cfg, raw, dev, seed=1)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(dir=root)
+    t0 = time.perf_counter()
+    mp.start_processes(dp_tp_child, args=(_free_port(), work, root,
+                                          dev.type),
+                       nprocs=4, start_method="spawn", join=True)
+    ranks_s = time.perf_counter() - t0
+    outs = []
+    for r in range(4):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    got = dict(np.load(os.path.join(work, "rank0.npz")))
+    check([o["index"] for o in outs] == [[0, 0], [0, 1], [1, 0], [1, 1]]
+          and all(o["mesh"] == {"data": 2, "model": 2} for o in outs),
+          "four ranks laid out dp 2 x tp 2, rank r at (r // 2, r % 2)")
+    check(all(o["digests"] == outs[0]["digests"] for o in outs)
+          and all(o["losses"] == outs[0]["losses"] for o in outs),
+          f"four ranks: parameters, statistics, Adam's moments and the "
+          f"step-1 gradients gathered whole bit-equal on all "
+          f"({len(outs[0]['digests'])} arrays), and the losses")
+    got_grads = {k[len("grad1/"):]: v for k, v in got.items()
+                 if k.startswith("grad1/")}
+    ours = step_drifts(ref, outs[0]["losses"], got_grads, got, cfg.lr)
+    yd = step_drifts(ref, yard[0], yard[1], yard[2], cfg.lr)
+    check(ours[0] <= max(1e-6, 2 * yd[0]), f"dp 2 x tp 2 vs one process: "
+          f"step-1 losses within {ours[0]:.3g} relative (yardstick "
+          f"{yd[0]:.3g})")
+    check(ours[1] <= 2 * yd[1] + 1e-6, f"dp 2 x tp 2 vs one process: "
+          f"step-1 gradients within {ours[1]:.3g} of the tree's largest <= "
+          f"2 x {yd[1]:.3g} (yardstick) + 1e-6")
+    check(ours[2] <= 2 * yd[2] + 1e-6, f"dp 2 x tp 2 vs one process: "
+          f"running statistics after 2 steps within {ours[2]:.3g} of range "
+          f"<= 2 x {yd[2]:.3g} (yardstick) + 1e-6")
+    check(ours[3] <= 2 * yd[3] + 1e-3, f"dp 2 x tp 2 vs one process: "
+          f"{ours[3]:.3%} of parameter elements' updates differ by more "
+          f"than 0.1 lr <= 2 x {yd[3]:.3%} (yardstick) + 0.1%")
+    rows = outs[0]["shard_rows"]
+    n_params = sum(k.startswith("params/") for k in ref[2])
+    check(rows and all(o["shard_rows"] == rows for o in outs)
+          and all(kept * 2 == whole for kept, whole in rows.values()),
+          f"every rank stores O/2 rows of each of the {len(rows)} sharded "
+          f"parameters (of {n_params}) and of their two Adam moments")
+    st, rp = outs[0]["stored"], outs[0]["replicated"]
+    total, whole = st["params"] + st["adam"], rp["params"] + rp["adam"]
+    cut = 1 - total / whole
+    check(all(o["stored"] == st for o in outs)
+          and abs(total / ((1 - DP_TP_PREDICTED_CUT) * whole) - 1) <= 0.05,
+          f"a rank stores {st['params']} B of parameters + {st['adam']} B "
+          f"of Adam moments = {total} B against {whole} B replicated "
+          f"(-{cut:.2%}; predicted -{DP_TP_PREDICTED_CUT:.1%}, within 5%)")
+    print(f"dp x tp bytes per rank: parameters {st['params']} + Adam "
+          f"{st['adam']} = {total} B; replicated {rp['params']} + "
+          f"{rp['adam']} = {whole} B (-{cut:.2%}); card: {card}",
+          flush=True)
+    per_rank = [o["launches"] for o in outs]
+    check(all(c == [2, 80, 4] for c in per_rank),
+          f"each rank's two dry-run steps launched K1, K2, K3 {per_rank} "
+          "times ([2, 80, 4])")
+    ws = [o["worker"] for o in outs]
+    worker_launches = [w["launches"] for w in ws]
+    steps, n_val = ws[0]["steps"], ws[0]["val_batches"]
+    check(all(c == [steps + n_val, 40 * steps, 2 * steps]
+              for c in worker_launches),
+          f"each rank's mesh Worker ({steps} steps, {n_val} validation "
+          f"batches) launched K1, K2, K3 {worker_launches} times")
+    check([(w["dp"], w["data_rank"]) for w in ws]
+          == [(2, 0), (2, 0), (2, 1), (2, 1)]
+          and len({w["val_mpjpe"] for w in ws}) == 1,
+          f"mesh Worker: padded validation one MPJPE on all four ranks "
+          f"{[w['val_mpjpe'] for w in ws]}")
+    ckpt = os.path.join(ws[0]["run_dir"], "checkpoint")
+    ev = Evaluator(train_config(root, work, compute_dtype="float32"),
+                   weights=ckpt, device=dev)
+    want = shard_mpjpe(ev, root, DP_TP_BATCH, 2, ev.cfg.seed, dev)
+    check(abs(ws[0]["val_mpjpe"] - want) <= 1e-9 * want
+          and all(not os.path.exists(os.path.join(work, f"logs{r}"))
+                  for r in (1, 2, 3)),
+          f"mesh Worker: padded validation {ws[0]['val_mpjpe']!r} == the "
+          f"1-process eval step over the two data shards, summed in "
+          f"float64, {want!r} (1e-9); only rank 0 wrote")
+    launches = [sum(c[i] for c in per_rank + worker_launches)
+                for i in range(3)]
+    return {"loss_rel": ours[0], "grad_rel": ours[1], "stats_rel": ours[2],
+            "update_beyond_0.1lr": ours[3], "yardstick": list(yd),
+            "sharded_tensors": len(rows), "parameter_tensors": n_params,
+            "bytes_per_rank": st, "bytes_replicated": rp,
+            "cut_per_rank": cut, "val_mpjpe_mm": ws[0]["val_mpjpe"],
+            "val_shards_f64_mm": want, "ranks_s": ranks_s,
+            "dryrun_s": [o["dryrun_s"] for o in outs],
+            "worker_run_s": [w["run_s"] for w in ws],
+            "worker_median_step_ms": [w["median_step_ms"] for w in ws],
+            "peak_bytes_per_rank": [o["peak_bytes"] for o in outs],
+            "launches_per_rank": per_rank,
+            "worker_launches_per_rank": worker_launches}, launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3223,6 +3519,11 @@ def main():
         print(f"DDP, two ranks, remat, groups and debug_nans phases: "
               f"{dp_phases_s:.1f} s", flush=True)
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dp_tp, k_dp_tp = dp_tp_phase(dev, root, card)
+        dp_tp["phase_s"] = time.perf_counter() - t0
+        print(f"dp x tp phase: {dp_tp['phase_s']:.1f} s", flush=True)
+        torch.cuda.empty_cache()
         t_new = time.perf_counter()
         exported, k1_export = export_phase(dev, root, raw_host)
         ops_library = ops_phase(dev)
@@ -3292,7 +3593,8 @@ def main():
         "export": k1_export, "infer_cli": k1_infer_cli,
         "profile_worker": profile_launches[0], "ddp_world1": k_ddp[0],
         "two_ranks": k_ranks[0], "remat": k_remat[0],
-        "groups_k2": k_groups[0], "debug_nans": k_nans[0]}
+        "groups_k2": k_groups[0], "debug_nans": k_nans[0],
+        "dp_tp": k_dp_tp[0]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {
         "training": k2_train, "augmented_training": k2_aug,
@@ -3303,7 +3605,8 @@ def main():
         f"{DIFFUSION}_training": diff_launches[1],
         "profile_worker": profile_launches[1], "ddp_world1": k_ddp[1],
         "two_ranks": k_ranks[1], "remat": k_remat[1],
-        "groups_k2": k_groups[1], "debug_nans": k_nans[1]}
+        "groups_k2": k_groups[1], "debug_nans": k_nans[1],
+        "dp_tp": k_dp_tp[1]}
     k2["launches"] = sum(k2["launches_by_path"].values())
     k3["launches_by_path"] = {
         "training": k3_train, "augmented_training": k3_aug,
@@ -3314,11 +3617,12 @@ def main():
         f"{DIFFUSION}_training": diff_launches[2],
         "profile_worker": profile_launches[2], "ddp_world1": k_ddp[2],
         "two_ranks": k_ranks[2], "remat": k_remat[2],
-        "groups_k2": k_groups[2], "debug_nans": k_nans[2]}
+        "groups_k2": k_groups[2], "debug_nans": k_nans[2],
+        "dp_tp": k_dp_tp[2]}
     k3["launches"] = sum(k3["launches_by_path"].values())
     k3["launches_by_variant"] = training["pool_bwd_launches_by_variant"]
     for record in (decode, serving, training, augmented, preemption,
-                   ddp_world1, two_ranks, remat, groups, debug_nans,
+                   ddp_world1, two_ranks, remat, groups, debug_nans, dp_tp,
                    ih_serving, ih_training, r50_serving, stems,
                    *r50_training.values(), fk_mano, *fm_serving.values(),
                    *fm_training.values(), diffusion, diff_serving,
@@ -3337,6 +3641,7 @@ def main():
     print(json.dumps({"remat": remat}), flush=True)
     print(json.dumps({"steps_per_dispatch": groups}), flush=True)
     print(json.dumps({"debug_nans": debug_nans}), flush=True)
+    print(json.dumps({"dp_tp": dp_tp}), flush=True)
     print(json.dumps({"export": exported}), flush=True)
     print(json.dumps({"ops_library": ops_library}), flush=True)
     print(json.dumps({"infer_cli": infer_cli}), flush=True)

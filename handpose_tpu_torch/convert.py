@@ -137,22 +137,41 @@ def export_flax_variables(model: nn.Module, grads: bool = False) -> dict:
     ``grads=True``, the ``.grad`` of every parameter instead, under its
     ``params/...`` path (no statistics); a parameter without a gradient
     raises ``ValueError``."""
-    flat = {}
-    for name, tensor in _variables(model, grads).items():
-        module_path, _, attr = name.rpartition(".")
-        if attr == "weight":
-            is_norm = isinstance(model.get_submodule(module_path),
-                                 (BatchNorm, GroupNorm))
-            coll, leaf = "params", "scale" if is_norm else "kernel"
-        elif attr in _EXPORT:
-            coll, leaf = _EXPORT[attr]
-        else:
-            raise KeyError(f"{name}: not a tensor the flax model has")
-        if grads:
+    tensors = _variables(model, grads)
+    if grads:
+        for name, tensor in tensors.items():
             if tensor.grad is None:
                 raise ValueError(f"{name} has no gradient")
-            tensor = tensor.grad
+        tensors = {name: tensor.grad for name, tensor in tensors.items()}
+    return export_flax_tensors(model, tensors)
+
+
+def export_flax_tensors(model: nn.Module,
+                        tensors: Mapping[str, torch.Tensor]) -> dict:
+    """``tensors`` (``model``'s tensor names to tensors of their shapes,
+    such as gradients) as flattened flax leaves: float32 numpy, each
+    under its name's flax path in flax's layout."""
+    flat = {}
+    for name, tensor in tensors.items():
+        path = flax_path(model, name)
         value = tensor.detach().to("cpu", torch.float32).numpy()
-        path = "/".join([coll, *module_path.split("."), leaf])
-        flat[path] = np.ascontiguousarray(_from_torch_layout(leaf, value))
+        flat[path] = np.ascontiguousarray(
+            _from_torch_layout(path.rpartition("/")[2], value))
     return flat
+
+
+def flax_path(model: nn.Module, name: str) -> str:
+    """The flattened flax path of ``model``'s tensor ``name`` (a
+    ``named_parameters``/``named_buffers`` name): a conv or dense
+    ``weight`` is a ``kernel``, whose output dimension the port keeps
+    first and flax last; every other leaf keeps flax's layout."""
+    module_path, _, attr = name.rpartition(".")
+    if attr == "weight":
+        is_norm = isinstance(model.get_submodule(module_path),
+                             (BatchNorm, GroupNorm))
+        coll, leaf = "params", "scale" if is_norm else "kernel"
+    elif attr in _EXPORT:
+        coll, leaf = _EXPORT[attr]
+    else:
+        raise KeyError(f"{name}: not a tensor the flax model has")
+    return "/".join([coll, *module_path.split("."), leaf])

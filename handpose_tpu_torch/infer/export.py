@@ -181,11 +181,16 @@ def export_fused_pipeline(cfg, weights=None, batch_size: int = 1,
 
 
 def _load(f):
-    """An artifact's callable, which casts each input to the dtype and
-    device the program was exported with (as the JAX loaders cast);
-    registers the scoremap operator first."""
+    """An artifact's callable (:func:`_callable`); registers the scoremap
+    operator first."""
     from .. import ops  # noqa: F401  (registers the operator)
-    program = torch.export.load(f)
+    return _callable(torch.export.load(f))
+
+
+def _callable(program):
+    """A loaded program's callable, which casts each input to the dtype
+    and device the program was exported with (as the JAX loaders
+    cast)."""
     names = set(program.graph_signature.user_inputs)
     specs = [n.meta["val"] for n in program.graph.nodes
              if n.op == "placeholder" and n.name in names]

@@ -32,14 +32,17 @@ the unbiased one at momentum 0.1).  Parameters are ``weight``/``bias``
 (flax ``mean``/``var``).
 
 Global statistics (``set_global_stats``, which ``parallel.replicate``
-turns on): in train mode each rank's sums are all-reduced over the
-process group before ``mean``/``var`` are formed (one all-reduce of the
-packed (2, C) sums a BN, two in 'stable', whose second pass takes the
-global mean as its shift; 'shifted''s running mean is equal on every
-rank), through the differentiable ``parallel.all_reduce_sum``: the
-batch statistics of the global batch, as the JAX package's ``psum`` over
-its sharded batch.  Every rank holds the same number of rows, so the
-row count is ``n * world``.  ``SYNC.all_reduces`` counts them.
+and ``parallel.sharding.TensorParallel`` turn on): in train mode each
+rank's sums are all-reduced over the data axis before ``mean``/``var``
+are formed (one all-reduce of the packed (2, C) sums a BN, two in
+'stable', whose second pass takes the global mean as its shift;
+'shifted''s running mean is equal on every rank), through the
+differentiable ``parallel.all_reduce_sum``: the batch statistics of the
+global batch, as the JAX package's ``psum`` over its sharded batch.
+Every data rank holds the same number of rows, so the row count is ``n *
+dp`` (``parallel.distributed.data_world``: the world, unless a dp x tp
+mesh puts the ranks of one "data" coordinate on the same rows).
+``SYNC.all_reduces`` counts them.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ import torch
 from torch import nn
 
 from ..ops.moments import fused_shifted_moments, rows_view
-from ..parallel.distributed import all_reduce_sum, world
+from ..parallel.distributed import all_reduce_sum, data_world
 
 BN_MODES = ("stable", "fast", "shifted")
 MOMENTUM = 0.9          # flax nn.BatchNorm's, on the running value
@@ -89,8 +92,8 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def _sum(self, *sums: torch.Tensor):
-        """``sums`` summed over the ranks, packed into one all-reduce, with
-        global statistics; else as they are."""
+        """``sums`` summed over the data axis, packed into one all-reduce,
+        with global statistics; else as they are."""
         if not self.global_stats:
             return sums
         SYNC.all_reduces += 1
@@ -100,7 +103,7 @@ class BatchNorm(nn.Module):
         """(mean, var) of the batch (the global batch with global
         statistics), float32 (C,), differentiable."""
         x2d = rows_view(x)
-        n = x2d.shape[0] * (world() if self.global_stats else 1)
+        n = x2d.shape[0] * (data_world() if self.global_stats else 1)
         zero = torch.zeros_like(self.running_mean)
         if self.mode == "shifted":
             shift = self.running_mean.clone()

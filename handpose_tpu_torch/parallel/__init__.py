@@ -1,5 +1,7 @@
 """Data parallelism over a ``torch.distributed`` process group (the
-process group is the mesh: see ``mesh.py``)."""
+process group is the mesh: see ``mesh.py``), and JAX's dp x tp layout of
+the train state over it (``sharding.py``, with its dry run in
+``dryrun.py``)."""
 
 from .distributed import (HostShardSampler, all_reduce_sum, gather_rows,
                           initialize_distributed, is_distributed, is_lead,

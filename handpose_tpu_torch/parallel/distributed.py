@@ -12,6 +12,20 @@ collectives give the step JAX's global reductions: :func:`all_reduce_sum`
 VJP of JAX's ``psum``) and :func:`gather_rows` (the rows of every rank, in
 rank order, for a loss over the global batch).
 
+The rows of a global batch lie on the mesh's "data" axis.  Without a
+dp x tp mesh every rank is on it; once a ``parallel.sharding.DpTpMesh``
+is laid out (:func:`set_mesh`), the ranks that share a "data" coordinate
+hold the same rows, and :func:`data_rank`/:func:`data_world` (which
+``HostShardSampler``, ``mesh.shard_batch`` and BatchNorm's row count
+read) give the data coordinate and dp.  A sum over rows
+(:func:`all_reduce_sum`, :func:`gather_rows`, :func:`all_reduce_float64`)
+is then the data axis's sum with the same bits on every rank of the
+world (:func:`data_sum_`): the ranks off the first model index add
+zeros to one all-reduce over the world, so the copies on one data
+coordinate cannot drift apart, whatever order the card's own sums take.
+Their backward runs over the data group.  The preemption flag
+(:func:`all_reduce_max_flag`) stays over every rank.
+
 Without a process group every helper is the single-process case: rank 0
 of a world of 1, and no collective is issued.
 """
@@ -42,6 +56,56 @@ def world() -> int:
 def is_lead() -> bool:
     """Rank 0 owns the run directory, the logs and the checkpoints."""
     return rank() == 0
+
+
+_MESH = None        # the mesh of set_mesh
+
+
+def set_mesh(mesh) -> None:
+    """Lay this process's collectives over rows out on ``mesh`` (a
+    ``parallel.sharding.DpTpMesh`` of the standing process group; None:
+    every rank on the data axis).  ``parallel.dryrun`` and the Worker
+    call it; it lapses with the process group that made the mesh."""
+    global _MESH
+    _MESH = mesh
+
+
+def _mesh():
+    """The mesh of :func:`set_mesh`, while its process group stands."""
+    if _MESH is None or not is_distributed() \
+            or _MESH.world_group is not dist.group.WORLD:
+        return None
+    return _MESH
+
+
+def data_rank() -> int:
+    """This rank's coordinate on the data axis."""
+    m = _mesh()
+    return rank() if m is None else m.data_index
+
+
+def data_world() -> int:
+    """The number of ranks on the data axis (dp)."""
+    m = _mesh()
+    return world() if m is None else m.dp
+
+
+def data_group():
+    """The process group of this rank's data axis (None: every rank)."""
+    m = _mesh()
+    return None if m is None else m.data_group
+
+
+def data_sum_(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed in place over the data axis, the same bits on every
+    rank of the world: off the mesh's first model index ``t`` becomes
+    zeros, and one all-reduce over the world adds the data axis's terms
+    (the other ranks hold copies of them).  Returns ``t``."""
+    m = _mesh()
+    if m is not None and m.model_index:
+        t.zero_()
+    dist.all_reduce(t)
+    return t
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -94,7 +158,9 @@ class HostShardSampler:
     Every rank sees the same shuffled permutation (seeded ``seed * 100003
     + epoch``) and takes its contiguous slice; lengths are truncated to a
     multiple of the global batch so every step's global batch is full.
-    ``rank``/``world`` default to the process group's.
+    ``process_index``/``process_count`` default to the data axis's
+    (:func:`data_rank`, :func:`data_world`): ranks with one "data"
+    coordinate load the same rows.
     """
 
     def __init__(self, dataset_len: int, global_batch_size: int,
@@ -104,9 +170,10 @@ class HostShardSampler:
         self.n = dataset_len
         self.shuffle = shuffle
         self.seed = seed
-        self.rank = process_index if process_index is not None else rank()
+        self.rank = (process_index if process_index is not None
+                     else data_rank())
         self.world = (process_count if process_count is not None
-                      else world())
+                      else data_world())
         if global_batch_size % self.world:
             raise ValueError(f"global batch {global_batch_size} does not "
                              f"divide across {self.world} processes")
@@ -175,62 +242,64 @@ class HostShardSampler:
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        y = x.clone()
-        dist.all_reduce(y)
-        return y
+        return data_sum_(x.clone())
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=data_group())
         return g
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, on every rank; differentiable (the
-    backward sums the ranks' incoming gradients, JAX's ``psum`` VJP)."""
-    return _AllReduceSum.apply(x)
+    """The sum of ``x`` over the data axis, on every rank
+    (:func:`data_sum_`); differentiable (the backward sums the data
+    group's incoming gradients, JAX's ``psum`` VJP).  Without a process group, ``x`` itself."""
+    return _AllReduceSum.apply(x) if is_distributed() else x
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        r, w = rank(), world()
+        r, w = data_rank(), data_world()
         ctx.rank, ctx.rows = r, x.shape[0]
         # each rank writes its rows into zeros and the sum assembles them:
         # one all-reduce, which every backend has for CUDA and host
         # tensors (gloo has no CUDA all-gather)
         out = x.new_zeros((w * x.shape[0],) + tuple(x.shape[1:]))
         out[r * x.shape[0]:(r + 1) * x.shape[0]] = x
-        dist.all_reduce(out)
-        return out
+        return data_sum_(out)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=data_group())
         return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows]
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``x``, concatenated in rank order, on every
-    rank; differentiable (this rank's gradient is the sum over the ranks
-    of the gradient of its rows)."""
+    """Every data rank's rows of ``x``, concatenated in the order of the
+    data axis, on every rank; differentiable (this rank's gradient is the
+    sum over the data axis of the gradient of its rows).  Without a
+    process group, ``x`` itself."""
+    if not is_distributed():
+        return x
     if x.dtype == torch.bool:
         return _GatherRows.apply(x.to(torch.uint8)).bool()
     return _GatherRows.apply(x)
 
 
 def all_reduce_max_flag(flag: bool, device) -> bool:
-    """Whether ``flag`` is set on any rank (``False`` everywhere unless one
-    sets it); every rank must call it at the same point."""
+    """Whether ``flag`` is set on any rank of the world (``False``
+    everywhere unless one sets it); every rank must call it at the same
+    point."""
     t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
 
 
 def all_reduce_float64(values: Sequence[float], device) -> list:
-    """``values`` summed over the ranks in float64."""
+    """``values`` summed over the data axis in float64, the same on every
+    rank (:func:`data_sum_`)."""
     t = torch.tensor(list(values), dtype=torch.float64, device=device)
-    dist.all_reduce(t)
-    return t.tolist()
+    return data_sum_(t).tolist()

@@ -3,19 +3,20 @@
 Port of ``handpose_tpu/parallel/mesh.py``.  The JAX package lays a
 ``jax.sharding.Mesh`` over the devices and places arrays on it with
 ``NamedSharding``; PyTorch has no counterpart of either: here the process
-group is the mesh (one rank, one card, the whole of the "data" axis), a
-rank holds its rows of each global batch as plain tensors, and
-:func:`replicate` keeps the parameters equal on every rank
-(``DistributedDataParallel``, whose gradient all-reduce plays XLA's
-``psum``).  The mesh's "model" axis (``handpose_tpu/parallel/
-sharding.py``'s dp x tp layout) is not ported: it needs two or more
-cards.
+group is the mesh (one rank, one card), a rank holds its rows of each
+global batch as plain tensors, and :func:`replicate` keeps the parameters
+equal on every rank (``DistributedDataParallel``, whose gradient
+all-reduce plays XLA's ``psum``).  By default every
+rank is on the "data" axis; ``parallel/sharding.py`` lays out JAX's
+("data", "model") mesh over the ranks, and then the ranks that share a
+"data" coordinate hold the same rows (``distributed.data_rank``).
 
-The global batch is the ranks' local batches concatenated in rank order.
-:func:`shard_batch` takes a rank's rows of a tensor that spans it (a raw
-batch, ``AugmentDraws`` or a dict of draws); with ``microbatches`` k it
-takes the rank's part of each of k consecutive microbatches, the layout
-``HostShardSampler.local_batches(epoch, k)`` loads.
+The global batch is the data ranks' local batches concatenated in the
+order of the data axis.  :func:`shard_batch` takes a rank's rows of a
+tensor that spans it (a raw batch, ``AugmentDraws`` or a dict of draws);
+with ``microbatches`` k it takes the rank's part of each of k consecutive
+microbatches, the layout ``HostShardSampler.local_batches(epoch, k)``
+loads.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Optional
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
-from .distributed import rank as _rank, world as _world
+from .distributed import data_rank, data_world
 
 
 def _rows(x: torch.Tensor, r: int, w: int, k: int, axis: int):
@@ -44,9 +45,9 @@ def shard_batch(batch, rank: Optional[int] = None,
                 axis: int = 0):
     """This rank's rows of ``batch`` (a tensor, a NamedTuple or dict of
     tensors and Nones) along ``axis``.  ``rank``/``world`` default to the
-    process group's."""
-    r = _rank() if rank is None else rank
-    w = _world() if world is None else world
+    data axis's (``distributed.data_rank``/``data_world``)."""
+    r = data_rank() if rank is None else rank
+    w = data_world() if world is None else world
 
     def one(x):
         return None if x is None else _rows(x, r, w, microbatches, axis)
@@ -67,12 +68,15 @@ def shard_batch_stacked(stack, rank: Optional[int] = None,
 
 def replicate(model: torch.nn.Module, find_unused_parameters: bool = False
               ) -> DistributedDataParallel:
-    """``model`` wrapped for data-parallel training over the process
-    group: parameters broadcast from rank 0, gradients averaged over the
-    ranks, BatchNorm's statistics global (``nn.norm.set_global_stats``).
-    Buffers are not broadcast: global BatchNorm keeps the running
-    statistics equal on every rank, and a broadcast would only hide a
-    divergence.  ``find_unused_parameters`` for a model whose training
+    """``model`` wrapped for data-parallel training: parameters broadcast
+    from rank 0, gradients averaged over every rank, BatchNorm's
+    statistics global over the data axis (``nn.norm.set_global_stats``).
+    Under a dp x tp mesh the ranks of one data coordinate compute the
+    gradient of the same rows, so the mean over the world is the data
+    axis's, and every rank gets the same bits of it.  Buffers are not
+    broadcast: global BatchNorm's sums (``distributed.data_sum_``) keep
+    the running statistics equal on every rank, and a broadcast would
+    only hide a divergence.  ``find_unused_parameters`` for a model whose training
     forward leaves parameters without a gradient (the zoo's
     ``trains_every_parameter``), which DDP then looks for every step."""
     from ..nn.norm import set_global_stats

@@ -20,7 +20,9 @@ The names are the flax names of the model inside whatever wraps it for
 training (DDP, ``Remat``): a ``module.`` prefix never reaches
 ``variables.npz``, where it would turn every resume into a finetune.  In a
 data-parallel run the lead rank writes and every rank resumes from the
-same directory (the Worker).
+same directory (the Worker).  A state laid out dp x tp
+(``parallel.sharding.shard_train_state``) is refused: gather it whole
+first (``gather_train_state``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from ..convert import export_flax_variables, load_flax_variables
+from ..parallel.sharding import TensorParallel
 from .state import TrainState
 from .steps import unwrap
 
@@ -60,7 +63,12 @@ def _write_dir(path: str, state: TrainState, epoch: int,
 def save_checkpoint(run_dir: str, state: TrainState, epoch: int,
                     best_mpjpe: float, is_best: bool) -> None:
     """Write ``<run_dir>/checkpoint/`` and, when ``is_best``,
-    ``<run_dir>/model_best/`` (a copy of it)."""
+    ``<run_dir>/model_best/`` (a copy of it).  Raises ``ValueError`` for a
+    state whose parameters are stored sharded."""
+    if isinstance(state.model, TensorParallel):
+        raise ValueError("a tensor-parallel train state holds this rank's "
+                         "rows only: gather_train_state(state) before "
+                         "saving it")
     last = os.path.join(run_dir, CKPT_LAST)
     _write_dir(last, state, epoch, best_mpjpe)
     if is_best:

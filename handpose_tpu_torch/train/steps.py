@@ -27,6 +27,13 @@ gradients and DDP's mean over the ranks divides that back out.  The
 augmentations' and the model's draws are made for the global batch from
 the generator (equal on every rank) and cut to the rank's rows, and
 ``draws``/``model_draws`` given to the step are the global batch's.
+Under a dp x tp mesh the rows, the gathers and DDP's mean are the data
+axis's (``parallel.distributed.data_rank``).  A step made on a
+``parallel.sharding.TensorParallel`` model (the state of
+``shard_train_state``) runs the same way with the model's selected
+parameters gathered over the "model" axis for compute; its gradients are
+averaged over the data axis in one flat all-reduce after the backward,
+where DDP would reduce its buckets.
 
 ``cfg.remat`` runs the model's forward under ``torch.utils.checkpoint``
 (:class:`Remat`); ``cfg.debug_nans`` raises ``FloatingPointError``
@@ -52,8 +59,9 @@ from ..losses import LossCalculation, masked_l2_loss, rot_mat_mse
 from ..metrics import masked_sum_count, mpjpe, pck_sum_count
 from ..nn.norm import BatchNorm
 from ..ops.projection import rel_normed_to_absolute
-from ..parallel.distributed import gather_rows, world
+from ..parallel.distributed import data_world, gather_rows
 from ..parallel.mesh import shard_batch
+from ..parallel.sharding import TensorParallel
 from .nans import nan_trap
 from .state import TrainState
 
@@ -110,14 +118,16 @@ class Remat(nn.Module):
 
 
 def unwrap(net: nn.Module) -> nn.Module:
-    """The model inside its DDP and :class:`Remat` wrappers."""
-    while isinstance(net, (DistributedDataParallel, Remat)):
+    """The model inside its DDP, ``TensorParallel`` and :class:`Remat`
+    wrappers."""
+    while isinstance(net, (DistributedDataParallel, TensorParallel, Remat)):
         net = net.module
     return net
 
 
 def _sharded(net: nn.Module) -> bool:
-    return isinstance(net, DistributedDataParallel)
+    """Whether ``net`` holds one data rank's rows of a global batch."""
+    return isinstance(net, (DistributedDataParallel, TensorParallel))
 
 
 def train_module(model: nn.Module, cfg: Config) -> nn.Module:
@@ -132,8 +142,8 @@ def _train_net(model: nn.Module, cfg: Config) -> nn.Module:
     if not cfg.remat or isinstance(inner, Remat):
         return model
     if _sharded(model):
-        raise ValueError("remat under DDP: replicate train_module(model, "
-                         "cfg), not the model")
+        raise ValueError("remat under DDP or TensorParallel: wrap "
+                         "train_module(model, cfg), not the model")
     return Remat(model)
 
 
@@ -152,7 +162,7 @@ def _draw_kwargs(model, batch: dict, generator, model_draws, rows: int,
     kw = {k[len("_inject_"):]: v for k, v in batch.items()
           if k.startswith("_inject_")}
     given = dict(model_draws or {})
-    w = world() if sharded else 1
+    w = data_world() if sharded else 1
     if generator is not None:
         given.update(model.draws(rows * w, generator,
                                  skip=set(kw) | set(given)))
@@ -173,9 +183,9 @@ def _forward(model, batch: dict, cfg: Config, train: bool, generator=None,
     net.train(train)
     inp = model_input(batch, cfg.input_channels)
     pose_x0 = batch["keypoint_xyz21_rel_normed"].reshape(inp.shape[0], 1, -1)
-    # a replicated train step, or an eval step under a process group of
-    # several ranks (the Worker's padded validation), holds a rank's rows
-    sharded = _sharded(model) if train else world() > 1
+    # a replicated train step, or an eval step on a data axis of several
+    # ranks (the Worker's padded validation), holds a rank's rows
+    sharded = _sharded(model) if train else data_world() > 1
     return net(inp, batch["camera_intrinsic_matrix"],
                batch["keypoint_scale"], batch["keypoint_xyz_root"], pose_x0,
                **_draw_kwargs(unwrap(model), batch, generator, model_draws,
@@ -307,7 +317,7 @@ def _global_aug_draws(raw: RawBatch, flags: dict, pp_kwargs: dict,
                          "generator")
     crop = pp_kwargs.get("crop_size", 256)
     return draw_augmentations(list(flags), (
-        raw.image.shape[0] * world(), tuple(raw.image.shape[1:3]),
+        raw.image.shape[0] * data_world(), tuple(raw.image.shape[1:3]),
         (crop, crop), 0), generator)
 
 
@@ -330,24 +340,32 @@ def _accum_grads(grad_one: Callable, state: TrainState, data,
     batch are cut along the batch axis with it;
     without them each microbatch draws its own, as the JAX step splits its
     key per microbatch.  A replicated ``net`` (DDP) all-reduces the
-    gradients once, in the last microbatch's backward."""
+    gradients once, in the last microbatch's backward; a
+    ``TensorParallel`` one once, after it."""
     state.optimizer.zero_grad(set_to_none=True)
     if k == 1:
-        return grad_one(data, draws, model_draws)
-    no_sync = net.no_sync if net is not None and _sharded(net) \
-        else nullcontext
-    parts = []
-    for i, a in enumerate(zip(
-            _split(data, k), [None] * k if draws is None else draws.split(k),
-            [None] * k if model_draws is None else _split(model_draws, k))):
-        with no_sync() if i < k - 1 else nullcontext():
-            parts.append(grad_one(*a))
-    with torch.no_grad():
-        for p in state.model.parameters():
-            if p.grad is not None:
-                p.grad.div_(k)
-    return {key: torch.stack([p[key] for p in parts]).mean(0)
-            for key in parts[0]}
+        losses = grad_one(data, draws, model_draws)
+    else:
+        no_sync = net.no_sync if isinstance(net, DistributedDataParallel) \
+            else nullcontext
+        parts = []
+        for i, a in enumerate(zip(
+                _split(data, k),
+                [None] * k if draws is None else draws.split(k),
+                [None] * k if model_draws is None else _split(model_draws,
+                                                              k))):
+            with no_sync() if i < k - 1 else nullcontext():
+                parts.append(grad_one(*a))
+        losses = {key: torch.stack([p[key] for p in parts]).mean(0)
+                  for key in parts[0]}
+    if isinstance(net, TensorParallel):
+        net.all_reduce_gradients()
+    if k > 1:
+        with torch.no_grad():
+            for p in state.model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(k)
+    return losses
 
 
 def _grad_one_on(net, cfg: Config) -> Callable:

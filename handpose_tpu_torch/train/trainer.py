@@ -39,6 +39,18 @@ visibility zeroed and the MPJPE and loss sums all-reduced in float64),
 the draws made for the global batch on every rank and cut to its rows,
 the preemption flag agreed by all ranks at each step boundary, and the
 run directory, logs, checkpoints and profile on rank 0 only.
+
+``cfg.mesh_shape`` over ``cfg.mesh_axis_names`` lays the ranks out as
+the JAX Worker's ``make_mesh`` does (``parallel.sharding.config_mesh``):
+``(-1,)`` over ``("data",)``, the default, puts every rank on "data"; a
+("data", "model") shape such as ``(2, 2)`` replicates the whole state
+and shards each global batch over "data" only, so the ranks of one
+"data" coordinate load, train on and validate the same rows (the
+BatchNorm sums, the loss gathers and the validation sums are the data
+axis's, with the same bits on every rank, and DDP averages over every
+rank), as ``handpose_tpu/train/trainer.py:161-163`` replicates its
+state over its mesh.  Other axis names, or a shape whose product is not
+the world, raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ from ..device import resolve_device
 from ..models import build_model, mano_source_of
 from ..parallel import distributed as dist_
 from ..parallel.mesh import replicate
+from ..parallel.sharding import config_mesh
 from ..utils.logging import NullLogger, RunLogger, StepStats, make_run_dir
 from .checkpoints import (filtered_resume, reconcile_schedule_count,
                           save_checkpoint)
@@ -122,6 +135,10 @@ class Worker:
         self.device = resolve_device(device)
         self.distributed = dist_.is_distributed()
         self.rank, self.world = dist_.rank(), dist_.world()
+        # the ranks of one "data" coordinate hold the same rows
+        self.mesh = config_mesh(cfg.mesh_shape, cfg.mesh_axis_names)
+        dist_.set_mesh(self.mesh)
+        self.data_rank, self.dp = dist_.data_rank(), dist_.data_world()
         self.is_lead = self.rank == 0
         if cfg.compilation_cache_dir:
             from ..utils.device_info import enable_compilation_cache
@@ -182,6 +199,9 @@ class Worker:
         aug = [f for f, on in self.aug_flags.items() if on]
         ranks = (f", rank {self.rank} of {self.world}" if self.distributed
                  else "")
+        if self.mesh.tp > 1:
+            ranks += (f", mesh {self.mesh.shape} at ({self.mesh.data_index},"
+                      f" {self.mesh.model_index})")
         self.logger.text(
             f"training {cfg.model_name} on {self.device}{ranks}: {what}, "
             f"batch {cfg.batch_size}, {self.steps_per_epoch} steps per "
@@ -260,9 +280,9 @@ class Worker:
     def _epoch_batches(self, split: str, epoch: int) -> Iterator:
         cfg = self.cfg
         if self.train_ds is None:
-            # each rank draws distinct samples: the global batch is the
-            # ranks' batches, not copies of one
-            rank_off = self.rank * 1_000_003
+            # each data rank draws distinct samples: the global batch is
+            # the data ranks' batches, not copies of one
+            rank_off = self.data_rank * 1_000_003
             for i in range(self.steps_per_epoch):
                 batch = fake_sample_batch(min(cfg.batch_size, 8),
                                           cfg.crop_size, cfg.input_channels,
@@ -274,8 +294,8 @@ class Worker:
         shuffle = is_train and cfg.shuffle \
             and not cfg.use_val_dataset_to_debug
         depth = max(cfg.prefetch_depth, 2)
-        if self.world > 1:
-            # this rank's shard of each global batch: training's in the
+        if self.dp > 1:
+            # this data rank's shard of each global batch: training's in the
             # grad_accum layout of the JAX step's microbatches, the
             # validation split whole, padded, its pad rows weighing 0
             sampler = dist_.HostShardSampler(len(ds), cfg.batch_size,

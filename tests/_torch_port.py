@@ -6,11 +6,13 @@ the BatchNorm parameters and statistics redrawn from a numpy seed so that
 the weight transfer of every leaf is exercised.
 """
 
+import os
 import pickle
 import sys
 import types
 
 import numpy as np
+import pytest
 import torch
 
 # The suite runs in several pytest-xdist workers beside XLA's own thread
@@ -18,6 +20,36 @@ import torch
 # the host and slows every worker.  These tests use small shapes, so one
 # thread each is enough.
 torch.set_num_threads(1)
+
+PORT_NICE = 10
+
+
+def lower_priority(nice: int = PORT_NICE) -> None:
+    """Run every thread of this process (XLA's and torch's pools
+    included: Linux keeps a nice value per thread) at ``nice``, and so
+    every thread and process they start later.  Never lowers a value
+    that is already higher."""
+    try:
+        tids = [int(t) for t in os.listdir("/proc/self/task")]
+    except FileNotFoundError:                   # no procfs: this thread
+        tids = [0]
+    for tid in tids:
+        try:
+            if os.getpriority(os.PRIO_PROCESS, tid) < nice:
+                os.setpriority(os.PRIO_PROCESS, tid, nice)
+        except ProcessLookupError:              # the thread has ended
+            pass
+
+
+@pytest.fixture(scope="module", autouse=True)
+def port_worker_niced():
+    """The port's test files yield the CPU to the suite's other workers:
+    the xdist worker that runs one is niced (``PORT_NICE``) from its
+    first port test on, and so are the processes its tests start.  A
+    fixture rather than an import-time call, because every worker
+    imports every test module, ``tests/test_train.py``'s too."""
+    lower_priority()
+    yield
 
 RAW_FIELDS = ("image", "mask", "keypoint_uv", "keypoint_vis",
               "keypoint_xyz", "camera_K")

@@ -14,6 +14,7 @@ import sys
 
 import pytest
 import torch
+from _torch_port import port_worker_niced  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,7 +35,9 @@ new = ["handpose_tpu_torch.nn.diffusion", "handpose_tpu_torch.nn.diffusion2d",
        "handpose_tpu_torch.infer.export",
        "handpose_tpu_torch.examples.serving_demo",
        "handpose_tpu_torch.parallel.distributed",
-       "handpose_tpu_torch.parallel.mesh", "handpose_tpu_torch.train.nans"]
+       "handpose_tpu_torch.parallel.mesh", "handpose_tpu_torch.train.nans",
+       "handpose_tpu_torch.parallel.sharding",
+       "handpose_tpu_torch.parallel.dryrun"]
 assert all(n in names for n in new), names
 print(len(names), bad)
 """
@@ -42,6 +45,7 @@ print(len(names), bad)
 
 def test_port_imports_no_jax_flax_or_reference_package():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"          # niced and single-threaded
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
@@ -69,6 +73,7 @@ def test_port_decodes_with_its_own_library(tmp_path):
     ``native/`` decoder is not loaded, and neither cv2 nor PIL is
     imported."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"          # niced and single-threaded
     res = subprocess.run(
         [sys.executable, "-c", _DECODE_PROBE, str(tmp_path / "a.png")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
@@ -122,6 +127,7 @@ def test_loading_an_artifact_imports_no_model_config_or_train_module(
     path = str(tmp_path / "fwd.pt2")
     save_exported(path, export_forward(cfg, None, 1, device="cpu"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"          # niced and single-threaded
     res = subprocess.run([sys.executable, "-c", _LOAD_PROBE, path],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=240)

@@ -30,6 +30,7 @@ from handpose_tpu_torch.train.checkpoints import (filtered_resume,
 
 from _torch_port import (flax_weights, jax_train_state, jax_variables,
                          torch_train_state, train_cfgs)
+from _torch_port import port_worker_niced  # noqa: F401
 
 CROP, SPE = 32, 5
 

@@ -41,6 +41,7 @@ from handpose_tpu_torch.nn import diffusion2d as td2
 from handpose_tpu_torch.utils import fid as tfid
 
 from _torch_port import max_rel_err, seeded_variables, unflatten
+from _torch_port import port_worker_niced  # noqa: F401
 
 COND = 32
 LAYER_TOL, UNET_TOL, GRAD_TOL, SAMPLE_TOL = 1e-5, 1e-5, 2e-5, 1e-4

@@ -61,6 +61,7 @@ from handpose_tpu_torch.train.state import create_train_state
 
 from _torch_port import (flax_weights, max_rel_err, pp_kwargs, seeded_raw,
                          torch_raw, unflatten)
+from _torch_port import port_worker_niced  # noqa: F401
 
 MODEL = "DiffusionHandPose"
 CROP, RAW, B, T, S = 64, 80, 4, 20, 10

@@ -29,6 +29,7 @@ from handpose_tpu_torch.train.steps import make_fused_eval_step
 
 from _torch_port import (MODEL, flax_weights, jax_raw, max_rel_err,
                          seeded_raw, torch_raw, unflatten)
+from _torch_port import port_worker_niced  # noqa: F401
 
 CROP = 64
 KEYS = ("loss_xyz", "loss_rot", "loss", "mpjpe", "mpjpe_sum", "mpjpe_count")

@@ -27,6 +27,7 @@ from handpose_tpu_torch.infer import Evaluator
 from handpose_tpu_torch.infer.__main__ import main as cli_main
 
 from _torch_port import MODEL, flax_weights, unflatten
+from _torch_port import port_worker_niced  # noqa: F401
 
 CROP, N, BATCH = 64, 10, 4
 

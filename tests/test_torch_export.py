@@ -48,6 +48,7 @@ from handpose_tpu_torch.models import build_model
 
 from _torch_port import (RAW_FIELDS, flax_weights, jax_raw, max_rel_err,
                          pp_kwargs, seeded_raw, torch_raw, unflatten)
+from _torch_port import port_worker_niced  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CROP, RAW, B = 64, 80, 2
@@ -196,6 +197,7 @@ def reloaded(cases, tmp_path_factory):
         torch.save(c["args"], work / f"{case}.args.pt")
     (work / "cases.json").write_text(json.dumps(list(cases)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"          # niced and single-threaded
     res = subprocess.run([sys.executable, "-c", _RELOAD, str(work)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=600)
@@ -204,8 +206,12 @@ def reloaded(cases, tmp_path_factory):
     return torch.load(work / "out.pt"), modules
 
 
-def _program(blob):
-    return torch.export.load(io.BytesIO(blob))
+@pytest.fixture(scope="module")
+def programs(cases):
+    """Each artifact deserialised once for the file (a load of a ResNet-50
+    artifact is ~9 s of the host's time)."""
+    return {case: torch.export.load(io.BytesIO(c["blob"]))
+            for case, c in cases.items()}
 
 
 def _targets(program) -> list:
@@ -217,25 +223,24 @@ def _targets(program) -> list:
 
 
 def test_fused_pipeline_calls_the_scoremap_op_once_and_no_plain_render(
-        cases):
-    targets = _targets(_program(cases["fused_pipeline"]["blob"]))
+        programs):
+    targets = _targets(programs["fused_pipeline"])
     assert targets.count(OP) == 1
     # the plain render's exp, its arange grid and its int32 truncation
     assert torch.ops.aten.exp.default not in targets
-    forward = _targets(_program(cases[FLAGSHIP]["blob"]))
+    forward = _targets(programs[FLAGSHIP])
     assert OP not in forward
 
 
-def test_the_exported_sampler_is_one_scan(cases):
-    targets = [str(t) for t in _targets(_program(
-        cases["DiffusionHandPose"]["blob"]))]
+def test_the_exported_sampler_is_one_scan(programs):
+    targets = [str(t) for t in _targets(programs["DiffusionHandPose"])]
     assert targets.count("scan") == 1, sorted(set(targets))
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_artifact_matches_jax(cases, case):
+def test_artifact_matches_jax(cases, programs, case):
     c = cases[case]
-    fn = export.load_exported(c["blob"])
+    fn = export._callable(programs[case])   # load_exported's callable
     xyz, uv = fn(*c["args"])
     jxyz, juv = c["jax"]
     assert xyz.shape == (B, 21, 3) and uv.shape == (B, 21, 2)

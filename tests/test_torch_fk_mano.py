@@ -38,6 +38,7 @@ from handpose_tpu_torch.nn import fk, mano
 from handpose_tpu_torch.ops import rotations
 
 from _torch_port import max_rel_err, write_mano_pickle
+from _torch_port import port_worker_niced  # noqa: F401
 
 T = torch.from_numpy
 B = 3

@@ -30,6 +30,7 @@ from handpose_tpu_torch.nn import mano
 from handpose_tpu_torch.train import __main__ as train_cli
 
 from _torch_port import write_mano_pickle
+from _torch_port import port_worker_niced  # noqa: F401
 
 SMALL = ["--device", "cpu", "--batch_size", "4",
          "--set", "input_img_shape=64,64", "--set", "compute_dtype=float32"]

@@ -66,6 +66,7 @@ from handpose_tpu_torch.train import steps
 
 from _torch_port import (flax_weights, max_rel_err, pp_kwargs, seeded_raw,
                          seeded_variables, torch_raw, unflatten)
+from _torch_port import port_worker_niced  # noqa: F401
 
 CROP, RAW, B = 64, 80, 4
 TOL = 1e-4

@@ -37,7 +37,7 @@ from handpose_tpu_torch.train import (PreemptionGuard, Worker,
                                       reconcile_schedule_count)
 from handpose_tpu_torch.train.checkpoints import TRAIN_STATE
 
-import _torch_port  # noqa: F401  (one torch thread)
+from _torch_port import port_worker_niced  # noqa: F401  (one torch thread, niced)
 
 N, BATCH, CROP = 8, 4, 32
 AUG = dict(hue_aug=True, coord_uv_noise=True, crop_center_noise=True,

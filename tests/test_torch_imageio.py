@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 from handpose_tpu_torch.data import imageio
+from _torch_port import port_worker_niced  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

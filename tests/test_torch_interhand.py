@@ -36,6 +36,7 @@ from handpose_tpu_torch.data import interhand as tih
 from handpose_tpu_torch.data.preprocess import preprocess_interhand_batch
 
 from _torch_port import interhand_raws, jax_interhand_draws
+from _torch_port import port_worker_niced  # noqa: F401
 
 SIZES = [(64, 40), (40, 64)]
 N_TRAIN, N_VAL, CROP = 8, 6, 32

@@ -40,6 +40,7 @@ from handpose_tpu_torch.infer import Evaluator
 from handpose_tpu_torch.infer.__main__ import main as cli_main
 
 from _torch_port import MODEL, flax_weights, interhand_raws, unflatten
+from _torch_port import port_worker_niced  # noqa: F401
 
 SIZES = [(64, 40), (40, 64)]
 CROP, B, N = 32, 4, 8

@@ -46,6 +46,7 @@ from handpose_tpu_torch.train.steps import _make_fused_grad_one
 from _torch_port import (MODEL, flax_weights, interhand_raws,
                          jax_train_state, max_rel_err, pp_kwargs,
                          torch_train_state, train_cfgs)
+from _torch_port import port_worker_niced  # noqa: F401
 
 SIZES = [(64, 40), (40, 64)]
 CROP, B, N = 64, 4, 8

@@ -58,6 +58,7 @@ from handpose_tpu_torch.train.steps import (make_fused_multi_step,
 from _torch_port import (AUG_FLAGS, assert_trajectory_close, flax_weights,
                          jax_raw, jax_train_state, jax_variables, pp_kwargs,
                          seeded_raw, torch_raw, torch_train_state, train_cfgs)
+from _torch_port import port_worker_niced  # noqa: F401
 
 CROP, RAW, B, SPE = 32, 40, 4, 2
 KW = dict(compute_dtype="float32", max_epoch=3)

@@ -36,7 +36,7 @@ from handpose_tpu_torch.config import MODEL_NAMES, Config
 from handpose_tpu_torch.models.zoo import ModelOutput
 from handpose_tpu_torch.train import steps
 
-import _torch_port  # noqa: F401  (one torch thread per worker)
+from _torch_port import port_worker_niced  # noqa: F401  (one torch thread, niced)
 
 RTOL = 1e-6
 B = 4

@@ -34,6 +34,7 @@ from handpose_tpu_torch.convert import load_flax_variables
 from handpose_tpu_torch.models import build_model
 
 from _torch_port import MODEL, flax_weights, max_rel_err, unflatten
+from _torch_port import port_worker_niced  # noqa: F401
 
 CROP, CH, B = 64, 21, 2
 RTOL = 1e-4

@@ -32,6 +32,7 @@ from handpose_tpu_torch.ops.moments import (fused_shifted_moments,
                                             rows_view, shifted_moments)
 
 from _torch_port import max_rel_err
+from _torch_port import port_worker_niced  # noqa: F401
 
 SHAPES = [(N, C) for N in (1, 17, 1023, 1025, 4100) for C in (64, 512)]
 TOL = 1e-5

@@ -16,7 +16,7 @@ from handpose_tpu.ops.pallas_kernels import render_gaussian_maps_pallas
 from handpose_tpu_torch import ops
 from handpose_tpu_torch.ops import scoremap_cuda
 
-import _torch_port  # noqa: F401  (one torch thread per test worker)
+from _torch_port import port_worker_niced  # noqa: F401  (one torch thread, niced)
 
 
 def T(a):

@@ -21,6 +21,7 @@ from handpose_tpu import ops as jops
 from handpose_tpu_torch import ops
 
 from _torch_port import max_rel_err
+from _torch_port import port_worker_niced  # noqa: F401
 
 RTOL = 1e-6
 RTOL_WARP = 1e-5

@@ -27,6 +27,7 @@ from handpose_tpu_torch.train.state import (TrainState,
                                             make_optimizer)
 
 from _torch_port import MODEL, flax_weights, max_rel_err
+from _torch_port import port_worker_niced  # noqa: F401
 
 LR, ETA_MIN, EPOCHS, SPE = 1e-3, 1e-5, 3, 2
 

@@ -75,6 +75,7 @@ from _torch_port import (AUG_FLAGS, assert_trajectory_close, flax_weights,
                          jax_draws, jax_raw, jax_train_state, jax_variables,
                          max_rel_err, pp_kwargs, seeded_raw, torch_raw,
                          torch_train_state, train_cfgs)
+from _torch_port import port_worker_niced  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "_torch_dist_worker.py")

@@ -33,6 +33,7 @@ from handpose_tpu_torch.ops.pooling import (max_pool_3x3s2p1_bwd,
                                             stem_max_pool)
 
 from _torch_port import max_rel_err
+from _torch_port import port_worker_niced  # noqa: F401
 
 
 def _nhwc(t):

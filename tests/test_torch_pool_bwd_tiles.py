@@ -29,6 +29,7 @@ import torch
 from handpose_tpu_torch.ops import pool_bwd_cuda
 from handpose_tpu_torch.ops.pool_bwd_cuda import TILE, smem_bytes, tile_plan
 from handpose_tpu_torch.ops.pooling import max_pool_3x3s2p1_bwd, pooled_size
+from _torch_port import port_worker_niced  # noqa: F401
 
 STEM = (256, 64, 128, 128)
 # (N, C, H, W): the stem, odd sizes, C = 5 and 3, 1 x 1, one past and one

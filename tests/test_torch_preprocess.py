@@ -25,6 +25,7 @@ from handpose_tpu_torch.data.preprocess import (AugmentDraws,
 
 from _torch_port import (AUG_FLAGS, RAW_FIELDS, jax_draws, jax_raw,
                          seeded_raw, torch_raw)
+from _torch_port import port_worker_niced  # noqa: F401
 
 # key -> (rtol, atol); None = exact
 TOL = {

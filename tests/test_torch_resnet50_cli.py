@@ -24,7 +24,7 @@ from handpose_tpu_torch.infer import __main__ as infer_cli
 from handpose_tpu_torch.infer import model_name_from_path
 from handpose_tpu_torch.train import __main__ as train_cli
 
-import _torch_port  # noqa: F401  (one torch thread per worker)
+from _torch_port import port_worker_niced  # noqa: F401  (one torch thread, niced)
 
 SMALL = ["--device", "cpu", "--batch_size", "4",
          "--set", "input_img_shape=64,64", "--set", "compute_dtype=float32"]

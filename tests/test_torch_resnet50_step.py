@@ -43,6 +43,7 @@ from handpose_tpu_torch.train.steps import (_make_fused_grad_one,
 from _torch_port import (flax_weights, jax_raw, jax_train_state, max_rel_err,
                          pp_kwargs, seeded_raw, torch_raw, torch_train_state,
                          train_cfgs)
+from _torch_port import port_worker_niced  # noqa: F401
 
 MODEL = "OnlyThreeDimHandPose"
 CROP, RAW, B, SPE = 64, 80, 4, 2

@@ -38,6 +38,7 @@ from handpose_tpu_torch.convert import (export_flax_variables,
 from handpose_tpu_torch.nn import resnet
 
 from _torch_port import max_rel_err, seeded_variables, unflatten
+from _torch_port import port_worker_niced  # noqa: F401
 
 CROP, CH, B, FILTERS, CLASSES = 64, 3, 2, 8, 10
 STEMS = ("k3s2", "k3s2_s2d", "k7s2")

@@ -18,6 +18,7 @@ import pytest
 
 from handpose_tpu.data import rhd as jrhd
 from handpose_tpu_torch.data import rhd as trhd
+from _torch_port import port_worker_niced  # noqa: F401
 
 N, S = 12, 48
 

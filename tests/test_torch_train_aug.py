@@ -35,6 +35,7 @@ from handpose_tpu_torch.train.steps import (_accum_grads,
 from _torch_port import (AUG_FLAGS, flax_weights, jax_draws, jax_raw,
                          jax_train_state, pp_kwargs, seeded_raw, torch_raw,
                          torch_train_state, train_cfgs)
+from _torch_port import port_worker_niced  # noqa: F401
 
 CROP, RAW, B, SPE = 64, 80, 4, 2
 KW = dict(compute_dtype="float32", max_epoch=3)

@@ -34,6 +34,7 @@ from handpose_tpu.nn.norm import make_norm as jmake_norm
 from handpose_tpu_torch.nn.norm import BatchNorm, ShiftedBatchNorm, make_norm
 
 from _torch_port import max_rel_err
+from _torch_port import port_worker_niced  # noqa: F401
 
 N, H, W, C = 4, 6, 6, 16
 

@@ -60,6 +60,7 @@ from _torch_port import (assert_trajectory_close, flax_weights, jax_raw,
                          jax_train_state, jax_variables, max_rel_err,
                          pp_kwargs, seeded_raw, torch_raw, torch_train_state,
                          train_cfgs)
+from _torch_port import port_worker_niced  # noqa: F401
 
 CROP, RAW, B, SPE, STEPS = 64, 80, 4, 2, 3
 KW = dict(compute_dtype="float32", max_epoch=3)

@@ -41,7 +41,7 @@ from handpose_tpu_torch.ops import cuda_build
 from handpose_tpu_torch.train import Worker
 from handpose_tpu_torch.utils import device_info, vis
 
-import _torch_port  # noqa: F401  (one torch thread)
+from _torch_port import port_worker_niced  # noqa: F401  (one torch thread, niced)
 
 N, BATCH, CROP = 8, 4, 32
 SMALL = ["--device", "cpu", "--set", f"input_img_shape={CROP},{CROP}",

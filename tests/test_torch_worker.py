@@ -29,7 +29,7 @@ from handpose_tpu_torch.data.rhd import write_synthetic_rhd
 from handpose_tpu_torch.infer import Evaluator
 from handpose_tpu_torch.train import Worker
 
-import _torch_port  # noqa: F401  (one torch thread)
+from _torch_port import port_worker_niced  # noqa: F401  (one torch thread, niced)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, BATCH, CROP = 12, 4, 64
