@@ -44,7 +44,8 @@
    float32 rounding carried through bf16 training); then the port's
    ``Worker`` for two epochs (4 train steps, whole-split validation after
    each), with every launch count read around it; then the step's layer
-   times and peak memory;
+   times (from the spans inside the step, ``utils/tracing.py``) and peak
+   memory;
 7. augmented training phase: the same Worker with all six train-time
    augmentations on (uv, crop centre, scale and offset noise, hue,
    scoremap dropout, drawn on the card): launch counts as in 6, finite
@@ -738,50 +739,45 @@ def _counts():
 
 def step_split(worker, raw, sampler=None):
     """Layer times of one b256 step on the Worker's path (its
-    augmentations drawn from its generator), device resident:
-    preprocessing, forward and loss, backward and Adam, each the mean of
-    a few calls after a warm one.  A model with a sampler
-    (DiffusionHandPose) runs it under ``no_grad`` on every forward, ~4 s
-    a pass paced by the host, whose spread from call to call exceeds the
-    rest of the step: ``sampler`` is then (ms, sample) of a pass the
-    Worker's run timed; the layers are timed with that sample replayed
-    (the same heads, FK and losses, and no gradient either way), and its
-    time (``sampler_ms``) is added to the forward and the step."""
-    from handpose_tpu_torch.data.preprocess import preprocess_fn_for
-    from handpose_tpu_torch.infer.evaluator import serving_kwargs
-    from handpose_tpu_torch.train import compute_losses
-    from handpose_tpu_torch.train.steps import _forward
-    model, state, cfg, g = (worker.model, worker.state, worker.cfg,
-                            worker.generator)
-    flags = {k: True for k, on in worker.aug_flags.items() if on}
-    pp = serving_kwargs(cfg)
-    preprocess = preprocess_fn_for(raw)
+    augmentations drawn from its generator), device resident, from the
+    port's spans inside the step (``utils/tracing.py``): three of the
+    Worker's steps after a warm one under a profiler session that traces
+    the card alone, each phase the device time between its span's events,
+    per step: the step, preprocessing, forward and loss, backward and
+    Adam.  A model with a sampler (DiffusionHandPose) runs it under
+    ``no_grad`` on every forward, ~4 s a pass paced by the host, whose
+    spread from call to call exceeds the rest of the step: ``sampler`` is
+    then (ms, sample) of a pass the Worker's run timed; the steps run with
+    that sample replayed (the same heads, FK and losses, and no gradient
+    either way), and its time (``sampler_ms``) is added to the forward
+    and the step."""
+    from torch.profiler import ProfilerActivity, profile
 
-    def prep():
-        if flags:
-            return preprocess(raw, **pp, **flags, generator=g)
-        return preprocess(raw, **pp)
-
-    def fwd_loss():
-        with torch.no_grad():
-            batch = prep()
-        out = _forward(model, batch, cfg, True, g)
-        return compute_losses(out, batch, cfg)["loss"]
-
-    with torch.no_grad():
-        preprocess_ms = cuda_ms(prep, 5)
+    from handpose_tpu_torch.utils.tracing import RECORDER
+    state, g = worker.state, worker.generator
     sampler_ms, replay = 0.0, contextlib.nullcontext()
     if sampler is not None:
         sampler_ms, sample = sampler
-        replay = mock.patch.object(model.diff_model, "sample",
+        replay = mock.patch.object(worker.model.diff_model, "sample",
                                    lambda *a, **kw: sample)
     with replay:
-        fwd_ms = cuda_ms(fwd_loss, 3) + sampler_ms
-        step_ms = cuda_ms(lambda: worker.train_step(state, raw, generator=g),
-                          3) + sampler_ms
-    split = {"step_ms": step_ms, "preprocess_ms": preprocess_ms,
-             "forward_ms": fwd_ms - preprocess_ms,
-             "backward_and_update_ms": step_ms - fwd_ms}
+        worker.train_step(state, raw, generator=g)
+        torch.cuda.synchronize()
+        RECORDER.clear()
+        with profile(activities=[ProfilerActivity.CUDA]):
+            for _ in range(3):
+                worker.train_step(state, raw, generator=g)
+            torch.cuda.synchronize()
+    phases = RECORDER.phases("hp.train.step")
+    RECORDER.clear()
+
+    def ms(name):
+        return phases[f"hp.train.{name}"]["device_ms"]
+
+    split = {"step_ms": ms("step") + sampler_ms,
+             "preprocess_ms": ms("preprocess"),
+             "forward_ms": ms("forward") + sampler_ms,
+             "backward_and_update_ms": ms("backward") + ms("update")}
     if sampler_ms:
         split["sampler_ms"] = sampler_ms
         split["sampler_share_of_forward"] = sampler_ms / split["forward_ms"]
@@ -953,7 +949,7 @@ def training_phase(dev, root, raw_host):
     dy_copies = _counts()[2].dy_copies
     peak = torch.cuda.max_memory_allocated()
     steps = worker.state.step
-    check(steps == 4 and len(worker.step_seconds) == 4,
+    check(steps == 4 and len(worker.stats.train_seconds) == 4,
           f"Worker took {steps} train steps over 2 epochs")
     launches = check_worker_launches(worker, "Worker run")
     losses = epoch_losses(worker)
@@ -964,10 +960,10 @@ def training_phase(dev, root, raw_host):
 
     # ---- layer times of one b256 step, device resident ----
     split = step_split(worker, raw)
-    med = float(np.median(worker.step_seconds[1:]))
+    med = float(np.median(worker.stats.train_seconds[1:]))
     training = {
         "steps": steps, "epoch_losses": losses, "val_mpjpe_mm": best,
-        "run_s": t_run, "step_s": worker.step_seconds,
+        "run_s": t_run, "step_s": worker.stats.train_seconds,
         "median_step_ms_after_first": med * 1e3,
         "train_img_per_s_median_after_first": BATCH / med,
         **split,
@@ -1096,11 +1092,11 @@ def augmented_training_phase(dev, root, raw_host, plain):
 
     # ---- layer times, beside the plain step's ----
     split = step_split(worker, raw)
-    med = float(np.median(worker.step_seconds[1:]))
+    med = float(np.median(worker.stats.train_seconds[1:]))
     augmented = {
         "steps": steps, "epoch_losses": losses, "val_mpjpe_mm": best,
         "evaluator_model_best_mpjpe_mm": ev_mpjpe, "run_s": t_run,
-        "step_s": worker.step_seconds,
+        "step_s": worker.stats.train_seconds,
         "median_step_ms_after_first": med * 1e3,
         "train_img_per_s_median_after_first": BATCH / med,
         **split,
@@ -1457,10 +1453,10 @@ def interhand_training_phase(dev, root):
           f"Worker's best validation MPJPE {best!r}")
     raw = worker.train_ds.raw_batch(range(BATCH)).to(dev)
     split = step_split(worker, raw)
-    med = float(np.median(worker.step_seconds[1:]))
+    med = float(np.median(worker.stats.train_seconds[1:]))
     out = {"steps": steps, "epoch_losses": losses, "val_mpjpe_mm": best,
            "evaluator_model_best_mpjpe_mm": ev_mpjpe, "run_s": t_run,
-           "step_s": worker.step_seconds,
+           "step_s": worker.stats.train_seconds,
            "median_step_ms_after_first": med * 1e3,
            "train_img_per_s_median_after_first": BATCH / med, **split,
            "max_memory_allocated_bytes": peak,
@@ -1901,12 +1897,12 @@ def model_training_phase(dev, root, raw_host, model, max_epoch=2):
                        if passes else None)
     if passes:
         split["sampler_ms_by_step"] = pass_ms
-    med = float(np.median(worker.step_seconds[1:]))
+    med = float(np.median(worker.stats.train_seconds[1:]))
     out = {"model": model, "input_channels": cfg.input_channels,
            "steps": steps, "epoch_losses": losses,
            "step_losses": step_losses, "val_mpjpe": best,
            "evaluator_model_best_mpjpe": ev_mpjpe, "run_s": t_run,
-           "step_s": worker.step_seconds,
+           "step_s": worker.stats.train_seconds,
            "median_step_ms_after_first": med * 1e3,
            "train_img_per_s_median_after_first": BATCH / med, **split,
            "max_memory_allocated_bytes": peak,
@@ -3167,7 +3163,8 @@ def groups_phase(dev, root):
         check(calls == want and worker.state.step == 4,
               f"steps_per_dispatch={k}: {calls} dispatches for "
               f"{worker.state.step} steps ({want})")
-        runs[k] = (worker_state(worker), list(worker.step_seconds), counts)
+        runs[k] = (worker_state(worker), list(worker.stats.train_seconds),
+                   counts)
         del worker
         torch.cuda.empty_cache()
     err = max_leaf_err(runs[8][0], runs[2][0])
@@ -3222,7 +3219,7 @@ def debug_nans_phase(dev, root, plain):
     counts = [k.launches for k in _counts()]
     check(counts == [4, 160, 8], f"debug_nans Worker: 4 steps launched K1, "
           f"K2, K3 {counts} times")
-    med = 1e3 * float(np.median(worker.step_seconds[1:]))
+    med = 1e3 * float(np.median(worker.stats.train_seconds[1:]))
     conv = worker.model.PosePrior_net.backbone.trunk.BasicBlock_2.Conv_1
     with torch.no_grad():
         conv.weight[0, 0, 0, 0] = float("nan")
@@ -3316,7 +3313,7 @@ def dp_tp_child(rank, port, work, root, device="cuda"):
                      "launches": [k.launches for k in _counts()],
                      "run_s": time.perf_counter() - t0,
                      "median_step_ms": 1e3 * float(np.median(
-                         w.step_seconds[1:]))}
+                         w.stats.train_seconds[1:]))}
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()

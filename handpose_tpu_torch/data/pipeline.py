@@ -17,6 +17,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..utils.tracing import span
 from .interhand import InterHandDataset
 from .rhd import RHDDataset
 
@@ -106,16 +107,17 @@ def sampled_device_batches(dataset, chunks, device: torch.device, *,
     pin = device.type == "cuda"
 
     def collate(chunk):
-        if isinstance(chunk, tuple):
-            idx, valid = chunk
-            raw = dataset.raw_batch(idx)
-            if not valid.all():
-                vis = np.asarray(raw.keypoint_vis)
-                raw = raw._replace(keypoint_vis=vis * valid.reshape(
-                    (-1,) + (1,) * (vis.ndim - 1)).astype(vis.dtype))
-        else:
-            raw = dataset.raw_batch(chunk)
-        return _host_tensors(raw, pin)
+        with span("hp.data.collate"):
+            if isinstance(chunk, tuple):
+                idx, valid = chunk
+                raw = dataset.raw_batch(idx)
+                if not valid.all():
+                    vis = np.asarray(raw.keypoint_vis)
+                    raw = raw._replace(keypoint_vis=vis * valid.reshape(
+                        (-1,) + (1,) * (vis.ndim - 1)).astype(vis.dtype))
+            else:
+                raw = dataset.raw_batch(chunk)
+            return _host_tensors(raw, pin)
 
     for raw in prefetch_map(collate, chunks, depth=depth):
         yield raw.to(device, non_blocking=pin)

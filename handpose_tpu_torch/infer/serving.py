@@ -17,6 +17,7 @@ from ..config import Config
 from ..data.preprocess import RawBatch, model_input, preprocess_fn_for
 from ..device import resolve_device
 from ..models import build_model
+from ..utils.tracing import span
 from .evaluator import Weights, load_weights, serving_kwargs
 
 
@@ -39,12 +40,17 @@ def serve(model, raw: RawBatch, cfg: Config,
     is deterministic as the JAX export's fixed ``PRNGKey(cfg.seed)``
     makes it."""
     dev = resolve_device(device)
-    raw = raw.to(dev)
-    sample = preprocess_fn_for(raw)(raw, **serving_kwargs(cfg))
-    inp = model_input(sample, cfg.input_channels)
-    kw = {}
-    if getattr(model, "stochastic", False):
-        kw["generator"] = torch.Generator(device=dev).manual_seed(cfg.seed)
-    out = model(inp, sample["camera_intrinsic_matrix"],
-                sample["keypoint_scale"], sample["keypoint_xyz_root"], **kw)
+    with span("hp.serve.call"):
+        with span("hp.serve.preprocess"):
+            raw = raw.to(dev)
+            sample = preprocess_fn_for(raw)(raw, **serving_kwargs(cfg))
+            inp = model_input(sample, cfg.input_channels)
+        with span("hp.serve.forward"):
+            kw = {}
+            if getattr(model, "stochastic", False):
+                kw["generator"] = torch.Generator(device=dev).manual_seed(
+                    cfg.seed)
+            out = model(inp, sample["camera_intrinsic_matrix"],
+                        sample["keypoint_scale"], sample["keypoint_xyz_root"],
+                        **kw)
     return out.xyz, out.uv

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.tracing import span
+
 
 def cosine_epoch_schedule(base_lr: float, eta_min: float, max_epoch: int,
                           steps_per_epoch: int) -> Callable[[int], float]:
@@ -60,11 +62,12 @@ class TrainState:
     def apply_gradients(self) -> "TrainState":
         """One Adam update from the parameters' ``.grad`` at the rate of
         the current step; returns the state."""
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.step += 1
+        with span("hp.train.update"):
+            lr = self.schedule(self.step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            self.step += 1
         return self
 
     def state_dict(self) -> dict:

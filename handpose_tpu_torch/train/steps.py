@@ -62,6 +62,7 @@ from ..ops.projection import rel_normed_to_absolute
 from ..parallel.distributed import data_world, gather_rows
 from ..parallel.mesh import shard_batch
 from ..parallel.sharding import TensorParallel
+from ..utils.tracing import span
 from .nans import nan_trap
 from .state import TrainState
 
@@ -358,13 +359,15 @@ def _accum_grads(grad_one: Callable, state: TrainState, data,
                 parts.append(grad_one(*a))
         losses = {key: torch.stack([p[key] for p in parts]).mean(0)
                   for key in parts[0]}
-    if isinstance(net, TensorParallel):
-        net.all_reduce_gradients()
-    if k > 1:
-        with torch.no_grad():
-            for p in state.model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(k)
+    if isinstance(net, TensorParallel) or k > 1:
+        with span("hp.train.backward"):
+            if isinstance(net, TensorParallel):
+                net.all_reduce_gradients()
+            if k > 1:
+                with torch.no_grad():
+                    for p in state.model.parameters():
+                        if p.grad is not None:
+                            p.grad.div_(k)
     return losses
 
 
@@ -374,11 +377,13 @@ def _grad_one_on(net, cfg: Config) -> Callable:
     model_draws=None)``; ``net`` as :func:`_train_net` gives it."""
     def grad_one(batch: dict, generator=None, model_draws=None) -> dict:
         with _watch(unwrap(net), cfg):
-            out = _forward(net, batch, cfg, True, generator, model_draws)
-            if _sharded(net):
-                out, batch = _gathered(out, batch)
-            losses = compute_losses(out, batch, cfg)
-            losses["loss"].backward()
+            with span("hp.train.forward"):
+                out = _forward(net, batch, cfg, True, generator, model_draws)
+                if _sharded(net):
+                    out, batch = _gathered(out, batch)
+                losses = compute_losses(out, batch, cfg)
+            with span("hp.train.backward"):
+                losses["loss"].backward()
         return {k: v.detach() for k, v in losses.items()}
 
     return grad_one
@@ -396,10 +401,11 @@ def make_train_step(model, cfg: Config):
 
     def train_step(state: TrainState, batch: dict, generator=None,
                    model_draws: Optional[dict] = None):
-        losses = _accum_grads(
-            lambda b, _, md: grad_one(b, generator, md), state, batch,
-            cfg.grad_accum, model_draws=model_draws, net=net)
-        return state.apply_gradients(), losses
+        with span("hp.train.step"):
+            losses = _accum_grads(
+                lambda b, _, md: grad_one(b, generator, md), state, batch,
+                cfg.grad_accum, model_draws=model_draws, net=net)
+            return state.apply_gradients(), losses
 
     return train_step
 
@@ -421,13 +427,15 @@ def _make_fused_grad_one(model, cfg: Config, preprocess_fn,
     def fused_grad_one(raw: RawBatch, draws=None, generator=None,
                        model_draws=None) -> dict:
         fn = preprocess_fn or preprocess_fn_for(raw)
-        if sharded and flags:
-            if draws is None:
-                draws = _global_aug_draws(raw, flags, pp_kwargs, generator)
-            draws = shard_batch(draws)
-        with torch.no_grad():
-            batch = fn(raw, **pp_kwargs, **flags, draws=draws,
-                       generator=generator)
+        with span("hp.train.preprocess"):
+            if sharded and flags:
+                if draws is None:
+                    draws = _global_aug_draws(raw, flags, pp_kwargs,
+                                              generator)
+                draws = shard_batch(draws)
+            with torch.no_grad():
+                batch = fn(raw, **pp_kwargs, **flags, draws=draws,
+                           generator=generator)
         return grad_one(batch, generator, model_draws)
 
     fused_grad_one.net = net
@@ -452,10 +460,11 @@ def make_fused_train_step(model, cfg: Config, preprocess_fn,
     def train_step(state: TrainState, raw: RawBatch, generator=None,
                    draws: Optional[AugmentDraws] = None,
                    model_draws: Optional[dict] = None):
-        losses = _accum_grads(
-            lambda r, d, md: grad_one(r, d, generator, md), state, raw,
-            cfg.grad_accum, draws, model_draws, net=grad_one.net)
-        return state.apply_gradients(), losses
+        with span("hp.train.step"):
+            losses = _accum_grads(
+                lambda r, d, md: grad_one(r, d, generator, md), state, raw,
+                cfg.grad_accum, draws, model_draws, net=grad_one.net)
+            return state.apply_gradients(), losses
 
     return train_step
 

@@ -18,8 +18,11 @@ directory with its config and provenance, TensorBoard scalars,
 every epoch's end (``model_best`` on a new best), resume and finetune;
 and preemption-safe training; ``cfg.profile_epoch`` traces that epoch's
 training into ``run_dir/profile/`` (a ``torch.profiler`` chrome trace,
-the card's kernels included), and ``cfg.compilation_cache_dir`` names
-where the native libraries are built and found.
+the card's kernels included, with the program's phases as ``hp.*``
+ranges), and ``cfg.compilation_cache_dir`` names where the native
+libraries are built and found.  Under any profiler session the epoch, the
+wait for each batch, each step's phases and the reads of its losses are
+spans of ``utils/tracing.py``.
 
 The Worker's knobs, as the JAX Worker's: ``fuse_preprocess=False``
 preprocesses each batch as its own pass (augmented from a generator
@@ -72,6 +75,7 @@ from ..parallel import distributed as dist_
 from ..parallel.mesh import replicate
 from ..parallel.sharding import config_mesh
 from ..utils.logging import NullLogger, RunLogger, StepStats, make_run_dir
+from ..utils.tracing import count, span
 from .checkpoints import (filtered_resume, reconcile_schedule_count,
                           save_checkpoint)
 from .preemption import PreemptionGuard
@@ -184,7 +188,6 @@ class Worker:
             self.logger = NullLogger()
         self.log_path = self.logger.log_path
         self.stats = StepStats()
-        self.step_seconds: list = []     # host time of each train step
         self.start_epoch = 0
         self.best_mpjpe = float(np.inf)
         # the augmentations' and the model's training draws, on the card
@@ -310,23 +313,49 @@ class Worker:
                 ds, cfg.batch_size, self.device, shuffle=shuffle,
                 seed=cfg.seed * 100003 + epoch, drop_remainder=is_train,
                 depth=depth)
-        if self.fused:
-            yield from raws
-            return
-        # fuse_preprocess=False: preprocessing as its own pass, the
-        # augmentations drawn from a per-epoch generator (JAX:
-        # PRNGKey(seed * 7919 + epoch))
+        yield from raws
+
+    def _unfused_preprocess(self, split: str, epoch: int):
+        """With ``fuse_preprocess=False`` on a dataset, the epoch's
+        preprocessing of a raw batch, as its own pass before each step,
+        the augmentations drawn from a per-epoch generator (JAX:
+        PRNGKey(seed * 7919 + epoch)); None where the steps take the raw
+        batches (fused) or the batches come preprocessed (fake data)."""
+        if self.fused or self.train_ds is None:
+            return None
         flags = {f: True for f, on in self.aug_flags.items()
-                 if on and is_train}
+                 if on and split == "training"}
         g = torch.Generator(device=self.device).manual_seed(
-            cfg.seed * 7919 + epoch) if flags else None
-        for raw in raws:
+            self.cfg.seed * 7919 + epoch) if flags else None
+
+        def preprocess(raw):
             with torch.no_grad():
-                batch = preprocess_fn_for(raw)(raw, **self.pp_kwargs,
-                                               **flags, generator=g)
+                return preprocess_fn_for(raw)(raw, **self.pp_kwargs,
+                                              **flags, generator=g)
+
+        return preprocess
+
+    def _waited(self, batches: Iterator) -> Iterator:
+        """``batches``, the main thread's wait for each timed
+        (``stats.input``, the span ``hp.data.wait``)."""
+        end = object()
+        while True:
+            with span("hp.data.wait"):
+                self.stats.input.tic()
+                batch = next(batches, end)
+                self.stats.input.toc()
+            if batch is end:
+                return
             yield batch
 
-    def _train_on(self, batch):
+    def _train_on(self, batch, preprocess=None):
+        if preprocess is not None:
+            # the step's unit holds the pass that preprocesses its batch
+            with span("hp.train.step"):
+                with span("hp.train.preprocess"):
+                    batch = preprocess(batch)
+                return self.train_step(self.state, batch,
+                                       generator=self.generator)
         if self.train_ds is not None or self.stochastic:
             return self.train_step(self.state, batch,
                                    generator=self.generator)
@@ -334,24 +363,30 @@ class Worker:
 
     def _finish_train_metrics(self, metrics: dict, epoch: int, idx: int,
                               losses_acc: dict):
-        """NaN abort, loss accumulation and periodic logging of a step."""
-        if self.cfg.nan_check:
-            loss_val = float(metrics["loss"])
-            if not np.isfinite(loss_val):
-                self.text(f"FATAL: non-finite loss {loss_val} at epoch "
-                          f"{epoch} iter {idx}; aborting (resume from the "
-                          f"last checkpoint in {self.run_dir})")
-                raise FloatingPointError(
-                    f"non-finite training loss at epoch {epoch} iter {idx}")
-        for k, v in metrics.items():
-            losses_acc[k] = losses_acc.get(k, 0.0) + float(v)
-        every = self.cfg.log_every_steps
-        if every and idx % every == 0:
-            terms = ", ".join(f"{k}: {float(v):.5f}"
-                              for k, v in metrics.items())
-            self.text(f"  epoch {epoch:03d} iter {idx:05d}/"
-                      f"{self.steps_per_epoch:05d} | {terms} | "
-                      f"{self.stats.summary()}")
+        """NaN abort, loss accumulation and periodic logging of a step:
+        the host's blocking reads of its losses (span ``hp.train.sync``,
+        each read counted in ``syncs``)."""
+        with span("hp.train.sync"):
+            if self.cfg.nan_check:
+                loss_val = float(metrics["loss"])
+                count("syncs")
+                if not np.isfinite(loss_val):
+                    self.text(f"FATAL: non-finite loss {loss_val} at epoch "
+                              f"{epoch} iter {idx}; aborting (resume from "
+                              f"the last checkpoint in {self.run_dir})")
+                    raise FloatingPointError(f"non-finite training loss at "
+                                             f"epoch {epoch} iter {idx}")
+            for k, v in metrics.items():
+                losses_acc[k] = losses_acc.get(k, 0.0) + float(v)
+            count("syncs", len(metrics))
+            every = self.cfg.log_every_steps
+            if every and idx % every == 0:
+                count("syncs", len(metrics))
+                terms = ", ".join(f"{k}: {float(v):.5f}"
+                                  for k, v in metrics.items())
+                self.text(f"  epoch {epoch:03d} iter {idx:05d}/"
+                          f"{self.steps_per_epoch:05d} | {terms} | "
+                          f"{self.stats.summary()}")
 
     def _run_group(self, group: list, epoch: int, losses_acc: dict) -> int:
         """A full ``steps_per_dispatch`` group of ``(idx, raw)`` through
@@ -366,21 +401,26 @@ class Worker:
         for j, (idx, _) in enumerate(group):
             self._finish_train_metrics({k: v[j] for k, v in losses_k.items()},
                                        epoch, idx, losses_acc)
-        dt = self.stats.step.toc()
-        self.step_seconds.extend([dt / len(group)] * len(group))
+        self.stats.train_toc(len(group))
         return len(group)
 
-    def _train_one(self, batch, epoch: int, idx: int, losses_acc: dict):
+    def _train_one(self, batch, epoch: int, idx: int, losses_acc: dict,
+                   preprocess=None):
         self.stats.step.tic()
-        self.state, metrics = self._train_on(batch)
+        self.state, metrics = self._train_on(batch, preprocess)
         self._finish_train_metrics(metrics, epoch, idx, losses_acc)
-        self.step_seconds.append(self.stats.step.toc())
+        self.stats.train_toc()
 
     def run_epoch(self, epoch: int, split: str,
                   fast_debug: bool = False) -> Optional[float]:
-        """One pass over ``split`` ('training' or 'validation'); returns
-        the validation MPJPE (None for training, or when no joint was
-        visible)."""
+        """One pass over ``split`` ('training' or 'validation') in the span
+        ``hp.epoch``; returns the validation MPJPE (None for training, or
+        when no joint was visible)."""
+        with span("hp.epoch"):
+            return self._run_epoch(epoch, split, fast_debug)
+
+    def _run_epoch(self, epoch: int, split: str,
+                   fast_debug: bool) -> Optional[float]:
         is_train = split == "training"
         losses_acc: dict = {}
         mpjpe_sum = mpjpe_count = 0.0
@@ -390,9 +430,9 @@ class Worker:
         group_k = (self.cfg.steps_per_dispatch
                    if is_train and self.multi_step is not None else 1)
         group: list = []
-        self.stats.input.tic()
-        for idx, batch in enumerate(self._epoch_batches(split, epoch)):
-            self.stats.input.toc()
+        preprocess = self._unfused_preprocess(split, epoch)
+        for idx, batch in enumerate(self._waited(
+                self._epoch_batches(split, epoch))):
             if fast_debug and idx > 2:
                 break
             if self._preempt_now():
@@ -408,10 +448,12 @@ class Worker:
                     n += self._run_group(group, epoch, losses_acc)
                     group = []
             elif is_train:
-                self._train_one(batch, epoch, idx, losses_acc)
+                self._train_one(batch, epoch, idx, losses_acc, preprocess)
                 n += 1
             else:
                 self.stats.step.tic()
+                if preprocess is not None:
+                    batch = preprocess(batch)
                 metrics = self.eval_step(batch, **draws)
                 mpjpe_sum += float(metrics["mpjpe_sum"])
                 mpjpe_count += float(metrics["mpjpe_count"])
@@ -420,8 +462,6 @@ class Worker:
                     if k not in ("mpjpe_sum", "mpjpe_count"):
                         losses_acc[k] = losses_acc.get(k, 0.0) + float(v)
                 n += 1
-            self.stats.input.tic()
-        self.stats.input.toc()
         # an epoch's tail that did not fill a group: one step at a time
         for idx, batch in group:
             self._train_one(batch, epoch, idx, losses_acc)

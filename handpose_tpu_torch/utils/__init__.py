@@ -1,5 +1,6 @@
 """Run directories, logs and timers; device introspection and traces;
-visualisation (``utils.vis``); FID (``utils.fid``)."""
+the spans of the program's phases (``utils.tracing``); visualisation
+(``utils.vis``); FID (``utils.fid``)."""
 
 from .device_info import (enable_compilation_cache, get_device_info,
                           get_device_utilization_as_string, profile_trace)

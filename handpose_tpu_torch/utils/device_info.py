@@ -73,7 +73,8 @@ def profile_trace(log_dir: str):
     """``torch.profiler`` over the block, the card's kernels too when
     there is one; on exit a chrome trace
     (``<log_dir>/trace_<time>_<pid>.json``) for chrome://tracing or
-    Perfetto."""
+    Perfetto, in which the program's spans (``utils/tracing.py``) are
+    ``hp.*`` ranges beside the operations and kernels they hold."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():

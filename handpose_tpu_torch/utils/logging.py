@@ -125,10 +125,11 @@ class Timer:
     def tic(self):
         self._start = time.perf_counter()
 
-    def toc(self) -> float:
+    def toc(self, n: int = 1) -> float:
+        """The seconds since :meth:`tic`, booked as ``n`` calls."""
         dt = time.perf_counter() - self._start
         self.total += dt
-        self.calls += 1
+        self.calls += n
         return dt
 
     @property
@@ -137,11 +138,19 @@ class Timer:
 
 
 class StepStats:
-    """Train-loop health: step time against input-stall time."""
+    """Train-loop health: step time against input-stall time, and the
+    host time of each train step (``train_seconds``)."""
 
     def __init__(self):
         self.step = Timer()
         self.input = Timer()
+        self.train_seconds: list = []
+
+    def train_toc(self, n: int = 1) -> None:
+        """Close the step timer over ``n`` train steps (a
+        ``steps_per_dispatch`` group), each booked its equal share."""
+        dt = self.step.toc(n)
+        self.train_seconds.extend([dt / n] * n)
 
     def summary(self) -> str:
         share = self.input.total / max(self.step.total + self.input.total,

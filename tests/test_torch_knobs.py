@@ -265,7 +265,7 @@ def test_worker_runs_groups_then_the_tail_one_by_one(tree, logs):
     singles = _counting(grouped, "train_step")
     grouped.run_epoch(0, "training")
     assert groups == [4] and singles == [2, 2]        # 6 = 4 + 2
-    assert grouped.state.step == 6 and len(grouped.step_seconds) == 6
+    assert grouped.state.step == 6 and len(grouped.stats.train_seconds) == 6
     one = Worker(_cfg(tree, logs, steps_per_dispatch=1), device="cpu")
     one.run_epoch(0, "training")
     _assert_same(export_flax_variables(one.model),

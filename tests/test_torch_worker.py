@@ -63,7 +63,7 @@ def test_worker_epoch_and_validation_equal_to_the_evaluator(tree, logs):
     worker = Worker(_cfg(tree, logs), device="cpu")
     assert worker.steps_per_epoch == N // BATCH
     best = worker.run()
-    assert worker.state.step == 3 and len(worker.step_seconds) == 3
+    assert worker.state.step == 3 and len(worker.stats.train_seconds) == 3
     log = open(worker.log_path).read()
     assert "Training Epoch: 000" in log and "Validation Epoch: 000" in log
     assert "full groups of 8 steps" in log  # steps_per_dispatch=8

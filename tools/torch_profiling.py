@@ -1,6 +1,8 @@
 """Shared helpers of ``tools/torch_serve_profile.py`` and
 ``tools/torch_train_profile.py``: run a function under ``torch.profiler``
-on the card and sum its device kernel time by kind."""
+on the card, sum its device kernel time by kind, and split its train
+steps or serve calls by phase from the port's spans
+(``handpose_tpu_torch/utils/tracing.py``)."""
 
 import subprocess
 import time
@@ -36,13 +38,19 @@ def card_line() -> str:
                           text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def profiled(fn, iters: int) -> dict:
+def profiled(fn, iters: int, unit: str = None) -> dict:
     """``fn`` run ``iters`` times under the profiler after the caller's
     warm-up: per call, the wall ms, the device kernel ms (``kernel_ms``),
-    the kernels launched, the kernel ms by kind, and the kernels as (ms,
-    launches, name), longest first."""
+    the kernels launched, the kernel ms by kind, the kernels as (ms,
+    launches, name), longest first, and with ``unit`` (``hp.train.step``
+    or ``hp.serve.call``) the recorder's split of those units by phase
+    (``phases``: each span's device and host ms and each count, per
+    unit)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from handpose_tpu_torch.utils.tracing import RECORDER
     torch.cuda.synchronize()
+    RECORDER.clear()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -66,9 +74,12 @@ def profiled(fn, iters: int) -> dict:
         by_kind[kind_of(evt.key)] += dev_us / iters / 1e3
     kernels.sort(reverse=True)
     kernel_ms = sum(ms for ms, _, _ in kernels)
+    phases = RECORDER.phases(unit) if unit else {}
+    RECORDER.clear()
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms,
             "launches": sum(n for _, n, _ in kernels),
-            "by_kind_ms": dict(by_kind), "kernels": kernels}
+            "by_kind_ms": dict(by_kind), "kernels": kernels,
+            "phases": phases}
 
 
 def with_sampler_kind(whole: dict, sampler: dict) -> dict:
@@ -81,17 +92,20 @@ def with_sampler_kind(whole: dict, sampler: dict) -> dict:
 
 
 def report(title: str, card: str, run: dict, by_kind: dict, top: int):
-    """Print the kinds, shares and top kernels of a :func:`profiled`
-    run."""
-    busy = run["kernel_ms"] / run["wall_ms"]
+    """Print the phases, kinds, shares and top kernels of a
+    :func:`profiled` run."""
     print(f"card: {card}")
     print(f"{title}: {run['wall_ms']:.3f} ms wall, {run['kernel_ms']:.3f} "
-          f"ms device kernel time ({busy:.1%} busy), "
-          f"{run['launches']:.0f} kernels")
-    if busy > 1:
-        print(f"note: kernel time exceeds wall time ({busy:.3f}): kernels "
-              "overlapped on several streams, or the profiler counted "
-              "some twice")
+          f"ms summed kernel time, {run['launches']:.0f} kernels")
+    if run["phases"]:
+        print("phases (device ms between each span's events, host ms):")
+        for name, v in run["phases"].items():
+            if name.startswith("count "):
+                print(f"  {name:22s} {v:9.2f}")
+            else:
+                dev = "-" if v["device_ms"] is None else \
+                    f"{v['device_ms']:.3f}"
+                print(f"  {name:22s} {dev:>9s} {v['host_ms']:9.3f}")
     total = sum(by_kind.values())
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {kind:20s} {ms:9.3f} ms  {ms / total:6.1%}")

@@ -8,10 +8,11 @@ Hand3DPosePriorNetwork, with the model's default input channels; full
 width, bf16, seeded weights) on a device-resident synthetic RHD batch
 under ``torch.profiler`` and prints the card's name and power limit, the
 device kernel time grouped by kind (convolution, elementwise, ...), the
-top kernels by device time, and the device's busy share of the wall
-time.  For DiffusionHandPose one sampler pass on the batch's features is
-also profiled alone and reported as its own kind, taken out of the
-others, with its busy share and kernels per denoise step.  The last line
+top kernels by device time, and the call's split by phase from the
+port's spans (preprocess, forward: device ms between each span's events
+and host ms).  For DiffusionHandPose one sampler pass on the batch's
+features is also profiled alone and reported as its own kind, taken out
+of the others, with its kernels per denoise step.  The last line
 is one JSON object with those numbers.  Needs a card; imports nothing of
 JAX.
 """
@@ -59,12 +60,12 @@ def main():
     model = load_serving_model(cfg, device=dev)
     for _ in range(2):
         serve(model, raw, cfg, dev)
-    run = profiled(lambda: serve(model, raw, cfg, dev), args.iters)
+    run = profiled(lambda: serve(model, raw, cfg, dev), args.iters,
+                   "hp.serve.call")
     by_kind = run["by_kind_ms"]
     out = {"card": card, "model": args.model, "batch": args.batch,
            "step_ms": run["wall_ms"], "device_kernel_ms": run["kernel_ms"],
-           "device_busy_share": run["kernel_ms"] / run["wall_ms"],
-           "kernels_per_step": run["launches"]}
+           "kernels_per_step": run["launches"], "phases": run["phases"]}
     sampler = None
     if hasattr(model, "diff_model"):
         with torch.inference_mode():
@@ -77,7 +78,6 @@ def main():
         out.update({
             "sampler_pass_ms": sampler["wall_ms"],
             "sampler_kernel_ms": sampler["kernel_ms"],
-            "sampler_busy_share": sampler["kernel_ms"] / sampler["wall_ms"],
             "sampler_kernels_per_denoise_step": sampler["launches"] / steps,
             "sampler_share_of_step_kernel_ms":
                 sampler["kernel_ms"] / run["kernel_ms"],
@@ -86,8 +86,7 @@ def main():
            by_kind, 15)
     if sampler is not None:
         print(f"sampler pass alone: {sampler['wall_ms']:.3f} ms wall, "
-              f"{sampler['kernel_ms']:.3f} ms kernels "
-              f"({out['sampler_busy_share']:.1%} busy), "
+              f"{sampler['kernel_ms']:.3f} ms kernels, "
               f"{out['sampler_kernels_per_denoise_step']:.0f} kernels a "
               "denoise step")
     out["by_kind_ms"] = by_kind

@@ -11,10 +11,11 @@ weights) on a device-resident synthetic RHD batch under
 ``torch.profiler`` and prints the card's name and power limit, the device
 kernel time per step grouped by kind (convolution, BN moments K2, pool
 backward K3, elementwise, ...), the top kernels by device time, and the
-device's busy share of the wall time.  For DiffusionHandPose, whose
-forward runs its 200-step DDIM sampler, one sampler pass on the step's
-features is also profiled alone: its kernels are reported as their own
-kind, taken out of the others, with the pass's own busy share and its
+step's split by phase from the port's spans (preprocess, forward,
+backward, update: device ms between each span's events and host ms).
+For DiffusionHandPose, whose forward runs its 200-step DDIM sampler, one
+sampler pass on the step's features is also profiled alone: its kernels
+are reported as their own kind, taken out of the others, with its
 kernels per denoise step.  With ``--ddp`` the same step also runs
 replicated (``parallel.replicate``) inside a process group of one rank
 over NCCL, as the Worker runs it under a group, and is profiled after
@@ -82,12 +83,11 @@ def main():
 
     for _ in range(2):
         one_step()
-    run = profiled(one_step, args.iters)
+    run = profiled(one_step, args.iters, "hp.train.step")
     by_kind = run["by_kind_ms"]
     out = {"card": card, "model": args.model, "batch": args.batch,
            "step_ms": run["wall_ms"], "device_kernel_ms": run["kernel_ms"],
-           "device_busy_share": run["kernel_ms"] / run["wall_ms"],
-           "kernels_per_step": run["launches"]}
+           "kernels_per_step": run["launches"], "phases": run["phases"]}
     sampler = None
     if hasattr(model, "diff_model"):
         with torch.no_grad():
@@ -99,7 +99,6 @@ def main():
         out.update({
             "sampler_pass_ms": sampler["wall_ms"],
             "sampler_kernel_ms": sampler["kernel_ms"],
-            "sampler_busy_share": sampler["kernel_ms"] / sampler["wall_ms"],
             "sampler_kernels_per_denoise_step": sampler["launches"] / steps,
             "sampler_share_of_step_kernel_ms":
                 sampler["kernel_ms"] / run["kernel_ms"],
@@ -108,8 +107,7 @@ def main():
            f"{float(losses['loss']):.5f})", card, run, by_kind, 20)
     if sampler is not None:
         print(f"sampler pass alone: {sampler['wall_ms']:.3f} ms wall, "
-              f"{sampler['kernel_ms']:.3f} ms kernels "
-              f"({out['sampler_busy_share']:.1%} busy), "
+              f"{sampler['kernel_ms']:.3f} ms kernels, "
               f"{out['sampler_kernels_per_denoise_step']:.0f} kernels a "
               "denoise step")
     out["by_kind_ms"] = by_kind
@@ -146,7 +144,7 @@ def ddp_profile(cfg, raw, dev, card, iters: int) -> dict:
 
     for _ in range(2):
         one_step()
-    run = profiled(one_step, iters)
+    run = profiled(one_step, iters, "hp.train.step")
     report(f"{cfg.model_name} train step b{cfg.batch_size}, replicated in "
            "a one-rank NCCL group (per step)", card, run, run["by_kind_ms"],
            20)
@@ -165,8 +163,7 @@ def ddp_profile(cfg, raw, dev, card, iters: int) -> dict:
         print(f"  {ms:8.3f} {n:7.1f}  {name[:100]}")
     dist.destroy_process_group()
     return {"step_ms": run["wall_ms"], "device_kernel_ms": run["kernel_ms"],
-            "device_busy_share": run["kernel_ms"] / run["wall_ms"],
-            "kernels_per_step": run["launches"],
+            "kernels_per_step": run["launches"], "phases": run["phases"],
             "by_kind_ms": run["by_kind_ms"],
             "collectives_host": [{"name": n, "calls": c, "host_ms": ms}
                                  for ms, c, n in coll[:12]]}
