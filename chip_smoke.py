@@ -28,6 +28,12 @@
      at b16, odd and tile-edge shapes, C = 5 and 3 and a tie-heavy input:
      equal support, within one ulp; timed, with its registers and
      resident blocks per SM;
+   - K4 eval-mode BatchNorm with its ReLU and residual add at every
+     apply of a b256 ResNet-50 and flagship (two ResNet-18s) forward, as
+     recorded from the trunks: the plain expression's bits, bf16, plain
+     and 'shifted', and float32 at the widest rows; timed at each apply
+     beside its bound, the plain expression and F.batch_norm (eval) with
+     F.relu, which the port never calls, and summed per forward;
 5. serving phase: the tree through its decoded cache; the Evaluator at
    batch 256 (two full batches and one of 8) and ``serve`` on one batch,
    full width (crop 256, 21 input channels, two ResNet-18 trunks), bf16
@@ -437,17 +443,20 @@ def serving_phase(dev, root, raw_host):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # ---- the main path, with the launch count read around it ----
-    kernel.launches = 0
+    # ---- the main path, with the launch counts read around it ----
+    n_batches = -(-N_SAMPLES // BATCH)
+    kernel.launches = _k4().launches = 0
     t0 = time.perf_counter()
     mpjpe = ev.evaluate()
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
     eval_launches = kernel.launches
+    k4_path("Evaluator", n_batches, 40)
+    _k4().launches = 0
     xyz, uv = serve(server, raw_dev, cfg, device=dev)
     torch.cuda.synchronize()
     launches = kernel.launches
-    n_batches = -(-N_SAMPLES // BATCH)
+    k4_path("serve", 1, 40)
     check(eval_launches == n_batches,
           f"scoremap launched once per Evaluator batch ({eval_launches} "
           f"for {n_batches} batches of {N_SAMPLES} samples at {BATCH})")
@@ -728,6 +737,135 @@ def pool_bwd_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# K4: eval-mode BatchNorm with its ReLU and residual add
+
+
+def trunk_bn_applies(net, in_channels, dev):
+    """{(C, H, W, residual, relu): applies} of the eval BatchNorms of one
+    b1 crop-256 forward of ``net`` (bf16), recorded at the operator."""
+    from handpose_tpu_torch.nn import norm
+    applies, real = {}, norm.bn_eval_apply
+
+    def record(x, mean, var, weight, bias, residual, relu, *rest):
+        key = (*x.shape[1:], residual is not None, relu)
+        applies[key] = applies.get(key, 0) + 1
+        return real(x, mean, var, weight, bias, residual, relu, *rest)
+
+    x = torch.zeros((1, in_channels, 256, 256), device=dev).to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+    with mock.patch.object(norm, "bn_eval_apply", record), \
+            torch.inference_mode():
+        net.to(dev).eval()(x)
+    return applies
+
+
+def bn_apply_phase(dev):
+    """K4 at every eval BatchNorm apply of a b256 ResNet-50 and flagship
+    forward: the plain expression's bits (bf16, plain and 'shifted';
+    float32 at the widest rows), then timed (kernel, plain, F.batch_norm
+    with F.relu) and summed per forward."""
+    import torch.nn.functional as F
+    from handpose_tpu_torch.nn.resnet import ExtendedResNet18, ResNet50
+    from handpose_tpu_torch.ops import bn_apply_cuda
+    kernel, plain = bn_apply_cuda.bn_eval_apply, bn_apply_cuda.bn_apply
+    trunks = {"resnet50": trunk_bn_applies(
+        ResNet50(3, dtype=torch.bfloat16), 3, dev)}
+    r18 = trunk_bn_applies(ExtendedResNet18(21, dtype=torch.bfloat16), 21,
+                           dev)
+    trunks["flagship"] = {k: 2 * n for k, n in r18.items()}
+    check(sum(trunks["resnet50"].values()) == 53
+          and sum(trunks["flagship"].values()) == 40,
+          "eval BatchNorm applies: 53 a ResNet-50 forward, 40 a flagship "
+          "one (two ResNet-18s)")
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(C, H, W, dtype):
+        def act():
+            t = torch.randn((BATCH, C, H, W), generator=g, device=dev)
+            return (t * 1.5 + 0.2).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+        stats = (torch.randn(C, generator=g, device=dev) * 0.5,
+                 torch.rand(C, generator=g, device=dev) + 0.25,
+                 torch.rand(C, generator=g, device=dev) + 0.5,
+                 torch.randn(C, generator=g, device=dev) * 0.1)
+        return act(), act(), stats
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
+
+    rows = {}
+    for key in sorted(set(trunks["resnet50"]) | set(trunks["flagship"]),
+                      key=lambda k: -k[0] * k[1] * k[2]):
+        C, H, W, has_res, relu = key
+        fusion = "residual_relu" if has_res else "relu" if relu else "none"
+        what = f"({BATCH}, {C}, {H}, {W}) {fusion}"
+        dtypes = [torch.bfloat16] + ([torch.float32] if C >= 1024 else [])
+        for dtype in dtypes:
+            x, res, stats = inputs(C, H, W, dtype)
+            residual = res if has_res else None
+            for shifted in (False, True):
+                out = kernel(x, *stats, residual, relu, shifted, dtype)
+                want = plain(x, *stats, dtype, shifted, residual, relu)
+                torch.cuda.synchronize()
+                check(torch.equal(bits(out), bits(want)),
+                      f"bn_apply kernel == plain bit for bit, {what} "
+                      f"{str(dtype)[6:]}, {'shifted' if shifted else 'plain'}")
+                del out, want
+            if dtype != torch.bfloat16:
+                continue
+            mean, var, weight, bias = stats
+
+            def library():
+                y = F.batch_norm(x, mean, var, weight, bias, False, 0.0,
+                                 bn_apply_cuda.EPSILON)
+                return F.relu(y if residual is None else residual + y) \
+                    if relu else y
+
+            n_bytes = x.numel() * x.element_size() * (3 if has_res else 2)
+            row = {"shape": [BATCH, C, H, W], "fusion": fusion,
+                   "ms": cuda_ms(lambda: kernel(x, *stats, residual, relu,
+                                                False, dtype), 20,
+                                 hide_host=True),
+                   "plain_ms": cuda_ms(lambda: plain(
+                       x, *stats, dtype, False, residual, relu), 5,
+                       hide_host=True),
+                   "library_ms": cuda_ms(library, 20, hide_host=True),
+                   "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "bytes": n_bytes}
+            print(f"bn_apply {what} bf16: kernel {row['ms']:.4f} ms "
+                  f"({100 * row['bound_ms'] / row['ms']:.1f}% of bound "
+                  f"{row['bound_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+                  f"batch_norm {row['library_ms']:.4f} ms", flush=True)
+            rows[key] = row
+            del x, res, residual
+    per_forward = {}
+    for trunk, applies in trunks.items():
+        per_forward[trunk] = {
+            k: sum(rows[key][k] * n for key, n in applies.items())
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        per_forward[trunk]["launches"] = sum(applies.values())
+        f = per_forward[trunk]
+        share = 100 * f["bound_ms"] / f["ms"]
+        print(f"bn_apply per b256 {trunk} forward ({f['launches']} "
+              f"launches): kernel {f['ms']:.4f} ms ({share:.1f}% of bound "
+              f"{f['bound_ms']:.4f}), plain {f['plain_ms']:.4f} ms, "
+              f"batch_norm {f['library_ms']:.4f} ms", flush=True)
+    stem = rows[(64, 128, 128, False, True)]
+    return {"name": "bn_apply", "route": "cuda",
+            "source": "handpose_tpu_torch/csrc/bn_apply.cu",
+            "replaces": "none (XLA fused eval BatchNorm, residual and ReLU "
+                        "on the TPU)",
+            "shape": f"({BATCH}, 64, 128, 128) bf16 + ReLU (stem BN)",
+            "ms": stem["ms"], "plain_ms": stem["plain_ms"],
+            "bound_ms": stem["bound_ms"], "bound_by": "bytes",
+            "roofline_pct": 100 * stem["bound_ms"] / stem["ms"],
+            "library_ms": stem["library_ms"],
+            "library": "F.relu(F.batch_norm(x, ..., training=False))",
+            "per_forward": per_forward, "by_apply": list(rows.values())}
+
+
+# ---------------------------------------------------------------------------
 # training phase
 
 
@@ -735,6 +873,30 @@ def _counts():
     from handpose_tpu_torch.ops import moments_cuda, pool_bwd_cuda, \
         scoremap_cuda
     return (scoremap_cuda.KERNEL, moments_cuda.KERNEL, pool_bwd_cuda.KERNEL)
+
+
+def _k4():
+    from handpose_tpu_torch.ops import bn_apply_cuda
+    return bn_apply_cuda.KERNEL
+
+
+# K4's launches on each eval path, read from 0 as the path's K1 count is:
+# its launches_by_path
+K4_BY_PATH = {}
+
+
+def k4_path(path, forwards, per_forward, launches=None):
+    """K4's launches on ``path`` since its count was set to 0 (or
+    ``launches``, read in another process), checked as one per BatchNorm
+    of each of the ``forwards`` eval forwards under no grad (40 for the
+    flagship's two ResNet-18s, 53 for a ResNet-50), and kept under
+    ``path``."""
+    n = _k4().launches if launches is None else launches
+    check(n == forwards * per_forward,
+          f"{path}: K4 launched {n} times (= {per_forward} BatchNorms x "
+          f"{forwards} eval forwards)")
+    K4_BY_PATH[path] = n
+    return n
 
 
 def step_split(worker, raw, sampler=None):
@@ -797,7 +959,7 @@ def train_config(root, logs, **kw):
 
 def reset_counts():
     k1, k2, k3 = _counts()
-    for k in (k1, k2, k3):
+    for k in (k1, k2, k3, _k4()):
         k.launches = 0
     k2.by_shape.clear()
     k3.dy_copies = 0
@@ -808,7 +970,9 @@ def check_worker_launches(worker, what, bn_shapes=BN_SHAPES, trunks=2):
     """The launch counts of a Worker's run from reset_counts(): K1 once a
     step or validation batch, K2 at the held BN shapes of its ``trunks``
     trunks (40 a step for the flagship's two ResNet-18s, 53 for one
-    ResNet-50), K3 once a trunk and step, all tiled, dy never copied."""
+    ResNet-50), K3 once a trunk and step, all tiled, dy never copied, K4
+    once a BatchNorm of each validation batch's forward (K1-K3's counts
+    returned; K4's kept by :func:`k4_path`)."""
     k1, k2, k3 = _counts()
     steps = worker.state.step
     n_val = worker.cfg.max_epoch * -(-len(worker.val_ds) // BATCH)
@@ -826,6 +990,7 @@ def check_worker_launches(worker, what, bn_shapes=BN_SHAPES, trunks=2):
                                 for _, N, C, n in bn_shapes},
           f"{what}: K2 at the BN shapes the K2 phase held and timed, as "
           f"often as the trunks hold them: {dict(k2.by_shape)}")
+    k4_path(f"{what}: validation", n_val, per_step)
     return launches
 
 
@@ -1332,14 +1497,17 @@ def interhand_serving_phase(dev, root):
     torch.cuda.synchronize()
     # ---- the main path, with the launch count read around it ----
     k1 = scoremap_cuda.KERNEL
-    k1.launches = 0
+    n_batches = -(-N_SAMPLES // BATCH)
+    k1.launches = _k4().launches = 0
     full = ev.evaluate_full()
     torch.cuda.synchronize()
     eval_launches = k1.launches
+    k4_path("InterHand Evaluator", n_batches, 40)
+    _k4().launches = 0
     xyz, uv = serve(server, raw, cfg, device=dev)
     torch.cuda.synchronize()
     launches = k1.launches
-    n_batches = -(-N_SAMPLES // BATCH)
+    k4_path("InterHand serve", 1, 40)
     check(eval_launches == n_batches and launches == n_batches + 1,
           f"InterHand: scoremap launched once per Evaluator batch "
           f"({eval_launches} for {n_batches}) and once by serve")
@@ -1701,6 +1869,7 @@ def model_serving_phase(dev, root, raw_host, model="Hand3DPoseNet"):
     from handpose_tpu_torch.infer import (Evaluator, load_serving_model,
                                           serve)
     from handpose_tpu_torch.infer.evaluator import serving_kwargs
+    from handpose_tpu_torch.nn.norm import BatchNorm
     from handpose_tpu_torch.ops import scoremap_cuda
 
     cfg = model_config(root, model)
@@ -1722,13 +1891,19 @@ def model_serving_phase(dev, root, raw_host, model="Hand3DPoseNet"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k1 = scoremap_cuda.KERNEL
-    # ---- the main path, with the launch count read around it ----
-    k1.launches = 0
+    n_bn = sum(isinstance(m, BatchNorm) for m in server.modules())
+    check(n_bn == 53 or model not in RESNET50_MODELS + (DIFFUSION,),
+          f"{model}: {n_bn} BatchNorms, the ResNet-50 trunk's 53")
+    # ---- the main path, with the launch counts read around it ----
+    n_batches = -(-N_SAMPLES // BATCH)
+    k1.launches = _k4().launches = 0
     t0 = time.perf_counter()
     mpjpe = ev.evaluate()
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
     eval_launches = k1.launches
+    k4_path(f"{model} Evaluator", n_batches, n_bn)
+    _k4().launches = 0
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     xyz, uv = serve(server, raw, cfg, device=dev)
@@ -1736,8 +1911,8 @@ def model_serving_phase(dev, root, raw_host, model="Hand3DPoseNet"):
     end.synchronize()
     served_ms = start.elapsed_time(end)
     launches = k1.launches
+    k4_path(f"{model} serve", 1, n_bn)
     peak = torch.cuda.max_memory_allocated()
-    n_batches = -(-N_SAMPLES // BATCH)
     check(eval_launches == n_batches and launches == n_batches + 1,
           f"{model}: scoremap launched once per Evaluator batch "
           f"({eval_launches} for {n_batches}) and once by serve")
@@ -2250,7 +2425,7 @@ import json, statistics, sys, time
 import numpy as np
 import torch
 import handpose_tpu_torch.ops
-from handpose_tpu_torch.ops import scoremap_cuda
+from handpose_tpu_torch.ops import bn_apply_cuda, scoremap_cuda
 artifact, inputs, out_path, iters = sys.argv[1:5]
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -2260,12 +2435,15 @@ fn = program.module()
 load_s = time.perf_counter() - t0
 op = torch.ops.handpose_tpu_torch.render_gaussian_maps.default
 calls = sum(n.target == op for n in program.graph.nodes)
+bn_op = torch.ops.handpose_tpu_torch.bn_eval_apply.default
+bn_calls = sum(n.target == bn_op for n in program.graph.nodes)
 args = [a.cuda() for a in torch.load(inputs)]
 with torch.no_grad():
-    scoremap_cuda.KERNEL.launches = 0
+    scoremap_cuda.KERNEL.launches = bn_apply_cuda.KERNEL.launches = 0
     xyz, uv = fn(*args)
     torch.cuda.synchronize()
     launches = scoremap_cuda.KERNEL.launches
+    bn_launches = bn_apply_cuda.KERNEL.launches
     torch.save({"xyz": xyz.cpu(), "uv": uv.cpu()}, out_path)
     for _ in range(3):
         fn(*args)
@@ -2281,6 +2459,7 @@ with torch.no_grad():
         b.synchronize()
         ms.append(a.elapsed_time(b))
 print(json.dumps({"load_s": load_s, "op_calls": calls, "launches": launches,
+                  "bn_op_calls": bn_calls, "bn_launches": bn_launches,
                   "ms": ms, "median_ms": statistics.median(ms),
                   "host_median_ms": statistics.median(host_ms),
                   "modules": sorted(m for m in sys.modules
@@ -2370,6 +2549,9 @@ def export_phase(dev, root, raw_host):
           f"{info['op_calls']} time(s), == 1")
     check(info["launches"] == 1, f"one call of the loaded program launched "
           f"K1 {info['launches']} time(s), == 1")
+    check(info["bn_op_calls"] == 40, f"the program calls K4's operator "
+          f"{info['bn_op_calls']} times, once a BatchNorm: == 40")
+    k4_path("export: the loaded program", 1, 40, info["bn_launches"])
     out = torch.load(out_path)
     errs = {k: float((out[k] - r.cpu()).abs().max())
             for k, r in (("xyz", ref_xyz), ("uv", ref_uv))}
@@ -2530,7 +2712,7 @@ def infer_cli_phase(dev, root, run_dir, best):
     from handpose_tpu_torch import Config
 
     k1 = _counts()[0]
-    k1.launches = 0
+    k1.launches = _k4().launches = 0
     t0 = time.perf_counter()
     res = infer_main(["--from_run", run_dir, "--pck",
                       "--batch_size", str(BATCH)])
@@ -2544,6 +2726,8 @@ def infer_cli_phase(dev, root, run_dir, best):
                         "--visualize_dir", vis])
     vis_s = time.perf_counter() - t0
     launches = k1.launches
+    # one forward a preprocessed batch: the passes' and the overlays'
+    k4_path("inference CLI", launches, 40)
     check(mpjpe == best, f"infer --from_run --visualize_dir: MPJPE "
           f"{mpjpe!r} == the run's best {best!r}")
     names = sorted(os.listdir(os.path.join(vis, "img")))
@@ -3451,8 +3635,9 @@ def main():
     from handpose_tpu_torch.data import imageio
     from handpose_tpu_torch.data.interhand import write_synthetic_interhand
     from handpose_tpu_torch.data.rhd import RHDDataset, write_synthetic_rhd
-    from handpose_tpu_torch.ops import (cuda_build, moments_cuda,
-                                        pool_bwd_cuda, scoremap_cuda)
+    from handpose_tpu_torch.ops import (bn_apply_cuda, cuda_build,
+                                        moments_cuda, pool_bwd_cuda,
+                                        scoremap_cuda)
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -3463,7 +3648,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     sources = [m.SOURCE for m in (scoremap_cuda, moments_cuda, pool_bwd_cuda,
-                                  imageio)]
+                                  bn_apply_cuda, imageio)]
     t0 = time.perf_counter()
     logs = cuda_build.build_many(sources)
     print(f"built {sources} in {time.perf_counter() - t0:.1f} s (one "
@@ -3497,6 +3682,7 @@ def main():
         k1 = scoremap_phase(dev, raw_host)
         k2 = moments_phase(dev)
         k3 = pool_bwd_phase(dev)
+        k4 = bn_apply_phase(dev)
         torch.cuda.empty_cache()
         serving, k1_serving = serving_phase(dev, root, raw_host)
         torch.cuda.empty_cache()
@@ -3658,7 +3844,9 @@ def main():
     print(json.dumps({"diffusion": diffusion}), flush=True)
     print(json.dumps({"diffusion_serving": diff_serving}), flush=True)
     print(json.dumps({"diffusion_training": diff_training}), flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    k4["launches_by_path"] = dict(K4_BY_PATH)
+    k4["launches"] = sum(K4_BY_PATH.values())
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

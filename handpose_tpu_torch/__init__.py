@@ -10,8 +10,9 @@ It covers the RHD and InterHand2.6M serving and training paths of
 ``Hand3DPosePriorNetwork``: its own PNG and JPEG codecs with the decoded
 caches (``csrc/imageio.cpp``), device preprocessing with the scoremap
 render as a hand-written CUDA kernel, the two ResNet-18 trunks with
-train-mode BatchNorm (its moments a CUDA kernel) and the stem max pool
-(its backward a CUDA kernel), Adam with the cosine LR, the fused train
+train-mode BatchNorm (its moments a CUDA kernel), eval-mode BatchNorm with
+its ReLU and residual add (one CUDA kernel) and the stem max pool (its
+backward a CUDA kernel), Adam with the cosine LR, the fused train
 and eval steps with the train-time augmentations, the ``Worker`` with
 checkpoints, resume, preemption, run logging and fake data, the
 ``Evaluator`` with MPJPE, PCK and AUC, and ``serve``.  The ResNet-50

@@ -24,7 +24,16 @@ Both modes compute
 
 in float32 and cast to the compute dtype, as flax ``nn.BatchNorm`` does;
 'shifted' casts ``x - mean``, the multiplier and the bias to the compute
-dtype before the affine step, as ``ShiftedBatchNorm`` does.  Train mode
+dtype before the affine step, as ``ShiftedBatchNorm`` does
+(``ops.bn_apply_cuda.bn_apply``).  ``forward(x, relu, residual)`` then
+adds the block's residual and applies its ReLU.  In eval mode with no
+gradient recorded, a (B, C, H, W) input takes the registered operator of
+the eval apply: on the card the CUDA kernel (``csrc/bn_apply.cu``), one
+pass over x (and the residual) where the expression makes eight, with
+the same roundings, which raises for an input it cannot take (not
+channels_last, not in the compute dtype); on the host the expression.
+Each such apply counts ``bn_fused`` (``utils.tracing.count``).  Every
+other call, train mode's among them, runs the expression.  Train mode
 then updates the running statistics as flax does, ``ra = 0.9 * ra + 0.1 *
 batch``, keeping the biased batch variance (torch ``BatchNorm2d`` keeps
 the unbiased one at momentum 0.1).  Parameters are ``weight``/``bias``
@@ -52,12 +61,13 @@ from functools import partial
 import torch
 from torch import nn
 
+from ..ops.bn_apply_cuda import bn_apply, bn_eval_apply
 from ..ops.moments import fused_shifted_moments, rows_view
 from ..parallel.distributed import all_reduce_sum, data_world
+from ..utils.tracing import count
 
 BN_MODES = ("stable", "fast", "shifted")
 MOMENTUM = 0.9          # flax nn.BatchNorm's, on the running value
-EPSILON = 1e-5
 
 
 class _SyncCount:
@@ -122,9 +132,24 @@ class BatchNorm(nn.Module):
         (ss,) = self._sum(ss)
         return mean, torch.clamp(ss / n, min=0.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _fuses(self, x: torch.Tensor) -> bool:
+        """Whether the apply of ``x`` takes the eval operator: eval mode,
+        no gradient recorded (``serve`` and the Evaluator run under
+        ``inference_mode``, export under ``no_grad``) and a (B, C, H, W)
+        input; the operator checks the rest."""
+        return not self.training and not torch.is_grad_enabled() \
+            and x.ndim == 4
+
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
         """(B, C, H, W) in channels_last memory, or (B, C) -> the same
-        shape in ``dtype``."""
+        shape in ``dtype``; with ``residual``, ``residual + y``; with
+        ``relu``, then its ReLU."""
+        if self._fuses(x):
+            count("bn_fused")
+            return bn_eval_apply(x, self.running_mean, self.running_var,
+                                 self.weight, self.bias, residual, relu,
+                                 self.mode == "shifted", self.dtype)
         if self.training:
             mean, var = self.batch_stats(x)
             with torch.no_grad():
@@ -135,15 +160,8 @@ class BatchNorm(nn.Module):
                                        + (1 - m) * var.detach())
         else:
             mean, var = self.running_mean, self.running_var
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        mul = (torch.rsqrt(var + EPSILON) * self.weight).reshape(shape)
-        y = x.to(torch.float32) - mean.reshape(shape)
-        bias = self.bias.reshape(shape)
-        if self.mode == "shifted":
-            # ShiftedBatchNorm casts y, mul and bias to the compute dtype
-            # before the affine step (handpose_tpu/nn/norm.py:121-125)
-            y, mul, bias = (t.to(self.dtype) for t in (y, mul, bias))
-        return (y * mul + bias).to(self.dtype)
+        return bn_apply(x, mean, var, self.weight, self.bias, self.dtype,
+                        self.mode == "shifted", residual, relu)
 
 
 def set_global_stats(model: nn.Module, on: bool = True) -> nn.Module:

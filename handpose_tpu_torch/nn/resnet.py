@@ -11,10 +11,15 @@ and ``bn1`` in ``ResNetMano``) so that ``convert.load_flax_variables`` maps a fl
 a module path one-to-one.
 
 Layout: NCHW tensors, in ``channels_last`` memory where the caller
-provides it (the Hopper-friendly layout for cuDNN convolutions).
+provides it (the Hopper-friendly layout for cuDNN convolutions, and the
+only one eval mode's BatchNorm kernel takes on the card: the models'
+trunks get it from ``models.zoo._trunk_input``).
 ``bn_variance`` picks the train-mode BatchNorm variance
 (``nn/norm.py``); ``.train()``/``.eval()`` picks the batch or the running
-statistics, as the JAX trunks' ``train`` argument does.
+statistics, as the JAX trunks' ``train`` argument does.  Each BatchNorm
+that a ReLU follows applies it, and a block's last one adds the residual
+first (``BatchNorm.forward(x, relu, residual)``): the same operations in
+the same order, which eval mode runs as one kernel on the card.
 """
 
 from __future__ import annotations
@@ -22,7 +27,6 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.pooling import stem_max_pool
@@ -51,10 +55,10 @@ class BasicBlock(nn.Module):
             self.norm_proj = norm(filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = self.BatchNorm_1(self.Conv_1(y))
+        y = self.BatchNorm_0(self.Conv_0(x), relu=True)
+        y = self.Conv_1(y)
         residual = self.norm_proj(self.conv_proj(x)) if self.project else x
-        return F.relu(residual + y)
+        return self.BatchNorm_1(y, relu=True, residual=residual)
 
 
 class BottleneckBlock(nn.Module):
@@ -81,11 +85,11 @@ class BottleneckBlock(nn.Module):
             self.norm_proj = norm(out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = F.relu(self.BatchNorm_1(self.Conv_1(y)))
-        y = self.BatchNorm_2(self.Conv_2(y))
+        y = self.BatchNorm_0(self.Conv_0(x), relu=True)
+        y = self.BatchNorm_1(self.Conv_1(y), relu=True)
+        y = self.Conv_2(y)
         residual = self.norm_proj(self.conv_proj(x)) if self.project else x
-        return F.relu(residual + y)
+        return self.BatchNorm_2(y, relu=True, residual=residual)
 
 
 def make_stem(stem: str, in_channels: int, filters: int,
@@ -133,7 +137,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, C, H, W) -> (B, num_classes) float32."""
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = self.bn_init(self.conv_init(x), relu=True)
         x = stem_max_pool(x)
         for block in self.blocks:
             x = block(x)
@@ -242,7 +246,7 @@ class ResNetMano(nn.Module):
         """(B, C, H, W) -> (B, fc_dim) float32."""
         if self.in_channels == 3:
             x = x[:, 0:3]
-        x = F.relu(self.bn1(getattr(self, self.stem_name)(x)))
+        x = self.bn1(getattr(self, self.stem_name)(x), relu=True)
         x = stem_max_pool(x)
         for block in self.blocks:
             x = block(x)

@@ -3,11 +3,13 @@
 
 Exports every name ``handpose_tpu/ops/__init__.py`` exports, plus the
 scoremap kernel's wrapper and the stem max pool.  Importing this package
-registers the scoremap kernel's operator
-(``torch.ops.handpose_tpu_torch.render_gaussian_maps``), which is all a
-process needs to load an exported serving program.
+registers the operators of the scoremap kernel
+(``torch.ops.handpose_tpu_torch.render_gaussian_maps``) and of eval-mode
+BatchNorm (``torch.ops.handpose_tpu_torch.bn_eval_apply``), which is all
+a process needs to load an exported serving program.
 """
 
+from . import bn_apply_cuda  # noqa: F401  (registers its operator)
 from .bone_rel import bone_rel_trafo, bone_rel_trafo_inv
 from .camera import cam2pixel, pixel2cam, world2cam
 from .canonical import canonical_trafo, flip_right_hand

@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card, held to their plain versions.
 
 K1 (scoremap), K2 (BatchNorm moments, up to the ResNet-50 trunk's
-C = 2048 in both dtypes) and K3 (stem max-pool backward), the RHD and
+C = 2048 in both dtypes), K3 (stem max-pool backward) and K4 (eval-mode
+BatchNorm with its ReLU and residual add, bit for bit at every BN shape
+of the ResNet-18 and ResNet-50 trunks, and once per BatchNorm of a serve
+call, whose outputs it leaves unchanged), the RHD and
 InterHand2.6M preprocessing on the card against the host, the train
 steps of the flagship and of a ResNet-50 model routed through the
 kernels against the same step with the plain versions substituted, and
@@ -19,8 +22,9 @@ import pytest
 import torch
 
 from handpose_tpu_torch import Config
-from handpose_tpu_torch.ops import (heatmap, moments, moments_cuda,
-                                    pool_bwd_cuda, pooling, scoremap_cuda)
+from handpose_tpu_torch.ops import (bn_apply_cuda, heatmap, moments,
+                                    moments_cuda, pool_bwd_cuda, pooling,
+                                    scoremap_cuda)
 
 pytestmark = pytest.mark.gpu
 
@@ -425,3 +429,126 @@ def test_s2d_stem_equals_k3s2_stem_on_the_card(cuda):
             torch.backends.cudnn.benchmark = flags
     assert rel(*ev) <= 1e-5, rel(*ev)
     assert rel(*tr) <= 1e-5, rel(*tr)
+
+
+# (H = W, C) of every BatchNorm of the crop-256 ResNet-18 and ResNet-50
+# trunks (k3s2 stem)
+BN_HW_C = ((128, 64), (64, 64), (64, 128), (64, 256), (32, 128), (32, 256),
+           (32, 512), (16, 256), (16, 512), (16, 1024), (8, 512), (8, 2048))
+
+
+def _bn_inputs(B, S, C, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def act():
+        t = torch.randn((B, C, S, S), generator=g, device=dev) * 1.5 + 0.2
+        return t.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    mean = torch.randn(C, generator=g, device=dev) * 0.5
+    var = torch.rand(C, generator=g, device=dev) + 0.25
+    var[::7] = 0.0                                # rsqrt(eps) in the scale
+    weight = torch.rand(C, generator=g, device=dev) + 0.5
+    bias = torch.randn(C, generator=g, device=dev) * 0.1
+    return act(), act(), (mean, var, weight, bias)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw_c", BN_HW_C)
+def test_bn_apply_kernel_equals_plain(cuda, hw_c, dtype):
+    """b2 at each shape, plain and 'shifted', no fusion, the ReLU, and the
+    residual with the ReLU: the same bits as the plain expression, in x's
+    layout, one launch each."""
+    S, C = hw_c
+    x, res, stats = _bn_inputs(2, S, C, dtype, cuda, seed=S + C)
+    for shifted in (False, True):
+        for residual, relu in ((None, False), (None, True), (res, True)):
+            before = bn_apply_cuda.KERNEL.launches
+            out = bn_apply_cuda.bn_eval_apply(x, *stats, residual, relu,
+                                              shifted, dtype)
+            torch.cuda.synchronize()
+            assert bn_apply_cuda.KERNEL.launches == before + 1
+            want = bn_apply_cuda.bn_apply(x, *stats, dtype, shifted,
+                                          residual, relu)
+            assert out.dtype == dtype and out.is_contiguous(
+                memory_format=torch.channels_last)
+            assert torch.equal(_bits(out), _bits(want)), (shifted, relu)
+
+
+def test_bn_apply_kernel_rejects_bad_inputs(cuda):
+    x, res, stats = _bn_inputs(2, 8, 64, torch.bfloat16, cuda, seed=0)
+    kernel = bn_apply_cuda.KERNEL
+    with pytest.raises(ValueError, match="channels_last"):
+        kernel(x.contiguous(), *stats, None, True, False)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        x12, _, s12 = _bn_inputs(2, 8, 12, torch.bfloat16, cuda, seed=0)
+        kernel(x12, *s12, None, True, False)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernel(x.half(), *stats, None, True, False)
+    with pytest.raises(ValueError, match="different devices"):
+        kernel(x, stats[0].cpu(), *stats[1:], None, True, False)
+    with pytest.raises(ValueError, match="must match"):
+        kernel(x, *stats, res[:1], True, False)
+    with pytest.raises(ValueError, match="must match"):
+        kernel(x, *stats, res.float(), True, False)
+    with pytest.raises(ValueError, match=r"contiguous float32 \(64,\)"):
+        kernel(x, stats[0][:32], *stats[1:], None, True, False)
+
+
+def test_eval_batchnorm_on_the_card_raises_for_what_the_kernel_cannot_take(
+        cuda):
+    """Eval mode under no grad takes the kernel for every (B, C, H, W)
+    input on the card: an NCHW-contiguous input or one outside the
+    module's dtype raises instead of taking the expression."""
+    from handpose_tpu_torch.nn.norm import BatchNorm
+    bn = BatchNorm(64, torch.bfloat16).to(cuda).eval()
+    x, _, _ = _bn_inputs(2, 8, 64, torch.bfloat16, cuda, seed=1)
+    with torch.inference_mode():
+        before = bn_apply_cuda.KERNEL.launches
+        bn(x, relu=True)
+        assert bn_apply_cuda.KERNEL.launches == before + 1
+        with pytest.raises(ValueError, match="channels_last"):
+            bn(x.contiguous(), relu=True)
+        with pytest.raises(ValueError, match="computes in torch.bfloat16"):
+            bn(x.float(), relu=True)
+    assert bn_apply_cuda.KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("model,channels,launches", [
+    ("Hand3DPosePriorNetwork", 21, 40), ("Hand3DPoseNet", 3, 53)])
+def test_a_serve_call_applies_each_bn_through_the_kernel(cuda, model,
+                                                         channels, launches):
+    """bf16 serving at crop 64: one K4 launch per BatchNorm of the trunks
+    (two ResNet-18s, 20 each; one ResNet-50), and (xyz, uv) bit for bit
+    those of the same call with every BatchNorm taking the expression."""
+    import tempfile
+    from unittest import mock
+    from handpose_tpu_torch.data.rhd import RHDDataset, write_synthetic_rhd
+    from handpose_tpu_torch.infer import load_serving_model, serve
+    from handpose_tpu_torch.nn.norm import BatchNorm
+    cfg = Config(model_name=model, input_channels=channels,
+                 input_img_shape=(64, 64))
+    with tempfile.TemporaryDirectory() as root:
+        write_synthetic_rhd(root, "evaluation", n=4, seed=3)
+        raw = RHDDataset(root, "evaluation",
+                         cache_decoded=True).raw_batch(range(4)).to(cuda)
+    net = load_serving_model(cfg, device=cuda)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        before = bn_apply_cuda.KERNEL.launches
+        fused = serve(net, raw, cfg, cuda)
+        torch.cuda.synchronize()
+        assert bn_apply_cuda.KERNEL.launches == before + launches
+        with mock.patch.object(BatchNorm, "_fuses", lambda self, x: False):
+            plain = serve(net, raw, cfg, cuda)
+        assert bn_apply_cuda.KERNEL.launches == before + launches
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    for a, b in zip(fused, plain):
+        assert torch.equal(a, b)

@@ -3,8 +3,10 @@ replayed there against eager serving, with K1 launched inside it.
 
 The flagship at crop 64, batch 4 (bf16 compute, the seeded init), from a
 seeded RHD raw batch: the exported program, after a save/load round
-trip, launches the scoremap kernel once a call (its registered operator)
-and gives eager ``serve``'s (xyz, uv) bit for bit; the operator itself
+trip, launches the scoremap kernel once a call and the eval BatchNorm
+kernel once per BatchNorm, 40 a call (their registered operators, which
+the program records), and gives eager ``serve``'s (xyz, uv) bit for bit;
+the scoremap operator itself
 dispatches a CUDA tensor to the kernel and a host tensor to the plain
 render.  Marked ``gpu``; each test skips when no CUDA device is present.
 This file imports no JAX:
@@ -21,7 +23,7 @@ import torch
 from handpose_tpu_torch import Config
 from handpose_tpu_torch.data.preprocess import RawBatch
 from handpose_tpu_torch.infer import export, load_serving_model, serve
-from handpose_tpu_torch.ops import heatmap, scoremap_cuda
+from handpose_tpu_torch.ops import bn_apply_cuda, heatmap, scoremap_cuda
 
 pytestmark = pytest.mark.gpu
 FIELDS = ("image", "mask", "keypoint_uv", "keypoint_vis", "keypoint_xyz",
@@ -58,15 +60,19 @@ def test_exported_pipeline_on_the_card_equals_eager_serving(cuda):
     blob = export.export_fused_pipeline(cfg, None, 4, (80, 80), device=cuda)
     fn = export.load_exported_pipeline(blob)
     before = scoremap_cuda.KERNEL.launches
+    bn_before = bn_apply_cuda.KERNEL.launches
     xyz, uv = fn(*raw)
     torch.cuda.synchronize()
     assert scoremap_cuda.KERNEL.launches == before + 1
+    assert bn_apply_cuda.KERNEL.launches == bn_before + 40
     assert xyz.device.type == "cuda"
     want = serve(load_serving_model(cfg, device=cuda), raw, cfg, cuda)
     assert torch.equal(xyz, want[0]) and torch.equal(uv, want[1])
     program = torch.export.load(io.BytesIO(blob))
     op = torch.ops.handpose_tpu_torch.render_gaussian_maps.default
     assert sum(n.target == op for n in program.graph.nodes) == 1
+    bn_op = torch.ops.handpose_tpu_torch.bn_eval_apply.default
+    assert sum(n.target == bn_op for n in program.graph.nodes) == 40
 
 
 def test_the_registered_op_dispatches_by_device(cuda):
