@@ -21,7 +21,9 @@ import torch
 # thread each is enough.
 torch.set_num_threads(1)
 
-PORT_NICE = 10
+# the lowest priority: the run ends when the worker that runs
+# tests/test_train.py, the suite's longest file, left at 0, does
+PORT_NICE = 19
 
 
 def lower_priority(nice: int = PORT_NICE) -> None:
@@ -143,6 +145,14 @@ def seeded_variables(shapes, seed: int) -> dict:
             w = rng.normal(0.0, 0.1, v.shape)
         flat[k] = w.astype(np.float32)
     return flat
+
+
+def array_ranges(side: dict, keys) -> dict:
+    """{key: {name: max |array|, at least 1e-12}} of the arrays under each
+    of ``keys`` in ``side``: a drift's denominators, each array's range
+    as :func:`max_rel_err` takes it."""
+    return {key: {k: max(float(np.abs(v).max()), 1e-12)
+                  for k, v in side[key].items()} for key in keys}
 
 
 def max_rel_err(ref, out) -> float:

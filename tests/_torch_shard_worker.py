@@ -125,7 +125,7 @@ def main():
     # the port's workers' nice value (inherited from a niced test process,
     # or set here)
     os.setpriority(os.PRIO_PROCESS, 0,
-                   max(os.getpriority(os.PRIO_PROCESS, 0), 10))
+                   max(os.getpriority(os.PRIO_PROCESS, 0), 19))
     with open(os.path.join(workdir, "job.json")) as f:
         job = json.load(f)
     initialize_distributed(f"localhost:{port}", job["world"], rank,

@@ -59,8 +59,8 @@ from handpose_tpu_torch.train import __main__ as train_cli
 from handpose_tpu_torch.train import steps
 from handpose_tpu_torch.train.state import create_train_state
 
-from _torch_port import (flax_weights, max_rel_err, pp_kwargs, seeded_raw,
-                         torch_raw, unflatten)
+from _torch_port import (array_ranges, flax_weights, max_rel_err, pp_kwargs,
+                         seeded_raw, torch_raw, unflatten)
 from _torch_port import port_worker_niced  # noqa: F401
 
 MODEL = "DiffusionHandPose"
@@ -151,12 +151,12 @@ def _flat_feats(feats) -> dict:
     return flat
 
 
-def _jax_side(fn, flat, batch, draws, order):
+def _jax_side(fn, variables, batch, draws, order):
     """JAX's side on the batch and draws in sample order ``order``, its
     batch axes put back in the batch's own order."""
     o = list(order)
     losses, out, bs, sample, feats, grads = fn(
-        unflatten(flat), {k: jnp.asarray(v[o]) for k, v in batch.items()},
+        variables, {k: jnp.asarray(v[o]) for k, v in batch.items()},
         {k: jnp.asarray(v[o]) for k, v in draws.items()})
     back = np.argsort(order)
     return dict(losses={k: float(v) for k, v in losses.items()},
@@ -168,12 +168,15 @@ def _jax_side(fn, flat, batch, draws, order):
                 flat_feats={k: v[back] for k, v in _flat_feats(feats).items()})
 
 
-def _drift(jax_, moved, drift):
-    for key in ("out", "bs", "grads", "flat_feats"):
+DRIFT_KEYS = ("out", "bs", "grads", "flat_feats")
+
+
+def _drift(jax_, ranges, moved, drift):
+    for key in DRIFT_KEYS:
         for k, want in jax_[key].items():
             d = drift.setdefault(key, {})
-            moved_by = float(np.abs(moved[key][k] - want).max()) / max(
-                float(np.abs(want).max()), 1e-12)
+            moved_by = float(np.abs(moved[key][k] - want).max()) / \
+                ranges[key][k]
             d[k] = max(d.get(k, 0.0), moved_by)
     d = drift.setdefault("sample", 0.0)
     drift["sample"] = max(d, max_rel_err(jax_["sample"], moved["sample"]))
@@ -208,10 +211,12 @@ def runs(batch, draws, weights):
     come from JAX's bone-head outputs; its own are in ``feats``."""
     jcfg, cfg = _cfgs()
     fn = _jax_program(jcfg)
-    jax_ = _jax_side(fn, weights, batch, draws, range(B))
-    drift = {}
+    variables = unflatten(weights)
+    jax_ = _jax_side(fn, variables, batch, draws, range(B))
+    ranges, drift = array_ranges(jax_, DRIFT_KEYS), {}
     for order in REORDERS:
-        _drift(jax_, _jax_side(fn, weights, batch, draws, order), drift)
+        _drift(jax_, ranges, _jax_side(fn, variables, batch, draws, order),
+               drift)
     port, samples = _port_model(cfg, weights)
     own = hook_geometry_inputs(port, {
         n: tuple(map(np.asarray, v)) if isinstance(v, (tuple, list))

@@ -25,7 +25,7 @@ FK's working range (``BONE_HEAD_SCALE``).  Each check is split where the
 conditioning breaks: the geometry's inputs are held to JAX's, and the
 port's outputs, losses and gradient are computed from JAX's inputs
 (``models.hook_geometry_inputs`` hands the port JAX's values with the
-port's own gradient).  The same JAX program runs on the batch in three
+port's own gradient).  The same JAX program runs on the batch in the 23
 other sample orders: train-mode BatchNorm over 16-row stage-4 batches
 makes the float32 gradient ill-conditioned
 (``test_torch_resnet50_step.py``), so each train-mode check is 1e-4 of
@@ -64,8 +64,8 @@ from handpose_tpu_torch.models import build_model, hook_geometry_inputs
 from handpose_tpu_torch.nn.resnet import ResNetMano
 from handpose_tpu_torch.train import steps
 
-from _torch_port import (flax_weights, max_rel_err, pp_kwargs, seeded_raw,
-                         seeded_variables, torch_raw, unflatten)
+from _torch_port import (array_ranges, flax_weights, max_rel_err, pp_kwargs,
+                         seeded_raw, seeded_variables, torch_raw, unflatten)
 from _torch_port import port_worker_niced  # noqa: F401
 
 CROP, RAW, B = 64, 80, 4
@@ -215,12 +215,12 @@ def _held_losses(losses):
     return held
 
 
-def _jax_side(fn, flat, batch, order):
+def _jax_side(fn, variables, batch, order):
     """JAX's side of :func:`runs` on ``batch`` in sample order ``order``,
     its batch axes put back in the batch's own order."""
     losses, out, bs, grads, ev, feats, ev_feats = fn(
-        unflatten(flat), {k: jnp.asarray(v) for k, v in
-                          _reordered(batch, order).items()})
+        variables, {k: jnp.asarray(v) for k, v in
+                    _reordered(batch, order).items()})
     back = np.argsort(order)
     return dict(losses={k: float(v) for k, v in losses.items()},
                 out={k: v[back] for k, v in _fields(out).items()},
@@ -231,15 +231,18 @@ def _jax_side(fn, flat, batch, order):
                 flat_feats={k: v[back] for k, v in _flat_feats(feats).items()})
 
 
-def _drift(jax_, moved, drift):
+DRIFT_KEYS = ("out", "bs", "grads", "flat_feats")
+
+
+def _drift(jax_, ranges, moved, drift):
     """``drift`` raised to JAX's movement under one reordering
-    (``moved``): each array over its range (as ``max_rel_err``, in
-    float32), each held loss relative."""
-    for key in ("out", "bs", "grads", "flat_feats"):
+    (``moved``): each array over its range (``ranges``, as
+    ``max_rel_err``, in float32), each held loss relative."""
+    for key in DRIFT_KEYS:
         for k, want in jax_[key].items():
             d = drift.setdefault(key, {})
-            moved_by = float(np.abs(moved[key][k] - want).max()) / max(
-                float(np.abs(want).max()), 1e-12)
+            moved_by = float(np.abs(moved[key][k] - want).max()) / \
+                ranges[key][k]
             d[k] = max(d.get(k, 0.0), moved_by)
     held = _held_losses(moved["losses"])
     for k, want in _held_losses(jax_["losses"]).items():
@@ -261,10 +264,12 @@ def runs(batch, weights):
         jcfg, cfg = _cfgs(model)
         flat = weights[model]
         fn = _jax_program(model, jcfg)
-        jax_ = _jax_side(fn, flat, batch, range(B))
-        drift = {}
+        variables = unflatten(flat)
+        jax_ = _jax_side(fn, variables, batch, range(B))
+        ranges, drift = array_ranges(jax_, DRIFT_KEYS), {}
         for order in REORDERS:
-            _drift(jax_, _jax_side(fn, flat, batch, order), drift)
+            _drift(jax_, ranges, _jax_side(fn, variables, batch, order),
+                   drift)
         port = _port_run(cfg, flat, batch, jax_)
         jax_["feats"] = jax_.pop("flat_feats")
         port["feats"] = _flat_feats(port["feats"])
